@@ -1,0 +1,146 @@
+"""Layer builders for the port's networks (counterpart of
+mmhand_tpu/models/layers.py, plain branch of each layer).
+
+Modules are NCHW, as torch's convolutions are; the networks take NHWC at
+their public ``forward`` and run ``channels_last`` inside.  Each builder
+returns the flat list of layers that the reference torch code puts into an
+``nn.Sequential``, so a network's ``state_dict`` has the reference layout that
+tools/convert_mmhand_torch.py parses.
+
+Weight init matches the reference's ``normal`` init (reference
+models/network_utils.py:12-20): conv kernels ~ N(0, 0.02), biases 0, norm
+scales ~ N(1, 0.02), norm biases 0.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+from torch import nn
+
+
+@dataclasses.dataclass(frozen=True)
+class NormConfig:
+    """Normalization choice (reference network_utils.py:74-84
+    get_norm_layer): 'batch' (affine), 'instance' (no affine) or 'none'."""
+
+    kind: str = "batch"
+
+    @property
+    def use_bias(self) -> bool:
+        """Convs skip their bias before an affine BatchNorm and keep it with
+        InstanceNorm (reference models/Generator.py:152-155)."""
+        return self.kind == "instance"
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm with eps 1e-5 and momentum 0.1 (flax momentum 0.9).
+
+    Train mode normalizes with the f32 batch statistics and folds the
+    *biased* batch variance into ``running_var``, as flax (and so
+    mmhand_tpu) does; torch's own BatchNorm2d folds the unbiased one.  Eval
+    mode is torch's BatchNorm2d over the running statistics."""
+
+    def __init__(self, features: int):
+        super().__init__(features, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        xf = x.float()
+        mean = xf.mean((0, 2, 3))
+        var = xf.var((0, 2, 3), unbiased=False)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked += 1
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * scale[:, None, None]
+        return (y + self.bias[:, None, None]).to(x.dtype)
+
+
+def norm_layer(cfg: NormConfig, features: int) -> nn.Module:
+    """mmhand_tpu ``Norm``: the normalization module ``cfg`` names."""
+    if cfg.kind == "batch":
+        return BatchNorm2d(features)
+    if cfg.kind == "instance":
+        # InstanceNorm2d(affine=False): per-sample per-channel over H, W
+        return nn.InstanceNorm2d(features, eps=1e-5, affine=False)
+    if cfg.kind == "none":
+        return nn.Identity()
+    raise NotImplementedError(f"norm [{cfg.kind}] not found")
+
+
+_PAD_LAYERS = {"reflect": nn.ReflectionPad2d,
+               "replicate": nn.ReplicationPad2d}
+
+
+def pad_conv(in_features: int, features: int, kernel: int, stride: int = 1,
+             pad: int = 0, pad_mode: str = "reflect",
+             use_bias: bool = True) -> list[nn.Module]:
+    """mmhand_tpu ``PadConv``: spatial padding, then a VALID conv.
+
+    Reflect and replicate padding are a pad layer before
+    ``Conv2d(padding=0)``; zero padding is the conv's own ``padding``, as in
+    the reference (models/Generator.py build_conv_block)."""
+    if pad and pad_mode in _PAD_LAYERS:
+        return [_PAD_LAYERS[pad_mode](pad),
+                nn.Conv2d(in_features, features, kernel, stride,
+                          bias=use_bias)]
+    if pad and pad_mode != "zero":
+        raise NotImplementedError(f"padding [{pad_mode}] is not implemented")
+    return [nn.Conv2d(in_features, features, kernel, stride, padding=pad,
+                      bias=use_bias)]
+
+
+def strided_conv(in_features: int, features: int, kernel: int = 3,
+                 stride: int = 2, padding: int = 1,
+                 use_bias: bool = False) -> nn.Conv2d:
+    """mmhand_tpu ``StridedConv``: conv with symmetric zero padding (the
+    k3 s2 p1 downsampling convs of the stems)."""
+    return nn.Conv2d(in_features, features, kernel, stride, padding=padding,
+                     bias=use_bias)
+
+
+def up_conv(in_features: int, features: int,
+            use_bias: bool = False) -> nn.ConvTranspose2d:
+    """mmhand_tpu ``UpConv``: ConvTranspose2d(k3, s2, p1, op1), the
+    generator's 2x upsampler (reference models/Generator.py:243-253)."""
+    return nn.ConvTranspose2d(in_features, features, 3, stride=2, padding=1,
+                              output_padding=1, bias=use_bias)
+
+
+def conv_norm_relu(in_features: int, features: int, kernel: int,
+                   norm: NormConfig, stride: int = 1, pad: int = 0,
+                   pad_mode: str = "reflect",
+                   zero_pad_in_conv: bool = False) -> list[nn.Module]:
+    """mmhand_tpu ``ConvNormRelu``: pad -> conv -> norm -> relu."""
+    if zero_pad_in_conv:
+        conv = [strided_conv(in_features, features, kernel, stride,
+                             padding=pad, use_bias=norm.use_bias)]
+    else:
+        conv = pad_conv(in_features, features, kernel, stride, pad,
+                        pad_mode, use_bias=norm.use_bias)
+    return [*conv, norm_layer(norm, features), nn.ReLU(True)]
+
+
+def init_weights(net: nn.Module, init_type: str = "normal",
+                 generator: Optional[torch.Generator] = None) -> nn.Module:
+    """Draw every conv and norm parameter of ``net`` (reference
+    models/network_utils.py weights_init_normal).  Only 'normal' is ported."""
+    if init_type != "normal":
+        raise NotImplementedError(
+            f"initialization method [{init_type}] is not ported to "
+            f"mmhand_torch yet")
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+                m.weight.normal_(0.0, 0.02, generator=generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.BatchNorm2d):
+                m.weight.normal_(1.0, 0.02, generator=generator)
+                m.bias.zero_()
+    return net
