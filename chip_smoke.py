@@ -5,15 +5,23 @@
 
 1. Builds the port's CUDA kernels from mmhand_torch/csrc/ with nvcc.
 2. Holds each kernel against its plain PyTorch version on the card, at the
-   generation path's shapes and at a ragged one, and times both.
+   main paths' shapes and at a ragged one, and times it beside its plain
+   version, its bound and, where one exists, the one PyTorch call that
+   computes the same function: K1 (heatmaps), K2 (BatchNorm sums) and K2b
+   (their backward).
 3. Holds the port on the card against the port on the CPU (the path the
-   tests hold against mmhand_tpu) on a small input: batch preparation and a
-   toy generator in float32.
+   tests hold against mmhand_tpu) on small inputs, in float32 with TF32
+   off: batch preparation and a toy generator; two toy train steps.
 4. Drives the generation path at full width (ngf 64, 9 PATBlocks, 256x256,
    batch norm, bf16 autocast, gen_batch 16) through
    ``mmhand_torch.scripts.aug.main`` over the synthetic dataset, counting the
    kernel launches of that run, then checks the written PNGs against the
    generator's output and the bf16 output against float32.
+5. Drives the train step at full width (the flagship Config(), batch 16, 6
+   steps) through ``mmhand_torch.scripts.train.main``, counting the kernel
+   launches of that run; checks the losses of every step, that every
+   network and running statistic moved, and that ``aug.main`` generates
+   from the saved generator; times one step's phases and profiles one step.
 
 Prints the kernels' JSON line, then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.  Any failed phase raises
@@ -38,6 +46,20 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 FULL = dict(size=256, ngf=64, gen_batch=16, n_items=64)
 K1_REPLACES = "mmhand_tpu/ops/heatmap.py:73"
+K2_REPLACES = "mmhand_tpu/ops/bn_stats.py:87"
+K2B_REPLACES = "mmhand_tpu/ops/bn_stats.py:73"
+BN_SOURCE = "mmhand_torch/csrc/bn_stats.cu"
+# the largest BatchNorm input of the train step, a PATBlock attention
+# stream's, and a ragged shape in f32
+BN_SHAPES = [((16, 64, 256, 256), "bfloat16"), ((16, 512, 64, 64), "bfloat16"),
+             ((3, 29, 37, 41), "float32")]
+# the train slice: the JAX Config() flagship (ngf 64, 9 PATBlocks, 256 px),
+# batch 16, a few steps; its BatchNorms: 47 in G, 9 in each D, run once in
+# G, twice in the G loss's D forwards and twice in each D phase
+TRAIN = dict(steps=6, batch=16)
+BN_PER_STEP = 47 + 2 * 9 + 2 * 9 + 2 * 9
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM
+F32_FLOPS = 67e12           # H100 SXM, outside the tensor cores
 
 
 def check(ok: bool, what: str) -> None:
@@ -133,12 +155,115 @@ def kernel_phase():
         print(f"K1 gaussian_heatmaps ({batch}, {height}, {width}, 21): "
               f"max_abs_err {err} ({exempt} clip-boundary pixels exempt); "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per call")
+        # f32 writes of the output, ~8 f32 operations and one exp per pixel
+        k1_bound, k1_by = bound(got.numel() * 4 + uv.numel() * 4,
+                                9 * got.numel())
+        print(f"K1 bound {k1_bound:.4f} ms ({k1_by}); no single PyTorch call "
+              f"computes the same function")
         if not record:
             record = {"name": "gaussian_heatmaps", "route": "cuda",
                       "source": "mmhand_torch/csrc/heatmap.cu",
                       "replaces": K1_REPLACES, "max_abs_err": err,
-                      "ms": ms, "plain_ms": plain_ms}
+                      "ms": ms, "plain_ms": plain_ms, "bound_ms": k1_bound,
+                      "bound_by": k1_by, "library_ms": None}
     return record
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """Least milliseconds for the work on an H100 SXM at 700 W: bytes over
+    3.35 TB/s of HBM, f32 operations over 67 TFLOP/s, whichever is larger."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def bn_kernel_phase():
+    """K2 and K2b against the plain version and its autograd on the card, in
+    the working type; returns their records, at the largest shape."""
+    import torch
+
+    from mmhand_torch.ops.bn_stats import (
+        bn_sums,
+        bn_sums_backward,
+        bn_sums_backward_ref,
+        bn_sums_ref,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    records = []
+    for shape, dtype in BN_SHAPES:
+        x = (torch.randn(shape, generator=gen, device="cuda") * 1.5 + 0.3
+             ).to(getattr(torch, dtype)).contiguous(
+                 memory_format=torch.channels_last)
+        c = shape[1]
+        s1, s2 = bn_sums(x)
+        torch.cuda.synchronize()
+        r1, r2 = bn_sums_ref(x)
+        # f32 sums taken in another order: the error is held relative to
+        # sum |x| and sum x^2, which bound the rounding of any order
+        scale1 = x.float().abs().sum((0, 2, 3))
+        rel1 = float(((s1 - r1).abs() / scale1).max())
+        rel2 = float(((s2 - r2).abs() / r2).max())
+        check(rel1 <= 1e-5 and rel2 <= 1e-5,
+              f"K2 at {shape} {dtype}: relative errors {rel1}, {rel2}")
+        err = max(float((s1 - r1).abs().max()), float((s2 - r2).abs().max()))
+
+        g1 = torch.randn(c, generator=gen, device="cuda")
+        g2 = torch.randn(c, generator=gen, device="cuda")
+        dx = bn_sums_backward(x, g1, g2)
+        torch.cuda.synchronize()
+        check(dx.dtype == x.dtype and dx.shape == x.shape
+              and dx.is_contiguous(memory_format=torch.channels_last),
+              f"K2b output {dx.dtype} {tuple(dx.shape)}")
+        # the plain formula in the same order, one rounding per operation
+        bwd_err = float((dx.float() - bn_sums_backward_ref(x, g1, g2).float()
+                         ).abs().max())
+        check(bwd_err == 0.0, f"K2b differs from the plain version by {bwd_err}")
+        # autograd of the plain sums adds 2 g2 x as g2 x + g2 x: one
+        # rounding of the working type apart, at most
+        xr = x.detach().requires_grad_()
+        torch.autograd.backward(bn_sums_ref(xr), (g1, g2))
+        eps = torch.finfo(x.dtype).eps
+        tol = eps * (g1.abs().view(1, -1, 1, 1)
+                     + 2 * (g2.view(1, -1, 1, 1) * x.float()).abs()) + 1e-30
+        excess = float(((dx.float() - xr.grad.float()).abs() - tol).max())
+        check(excess <= 0.0, "K2b differs from autograd beyond one rounding")
+        del xr
+
+        ms = cuda_ms(lambda: bn_sums(x))
+        plain_ms = cuda_ms(lambda: bn_sums_ref(x))
+        library_ms = cuda_ms(lambda: torch.batch_norm_stats(x, 1e-5))
+        bwd_ms = cuda_ms(lambda: bn_sums_backward(x, g1, g2))
+        bwd_plain_ms = cuda_ms(lambda: bn_sums_backward_ref(x, g1, g2))
+        nbytes = x.numel() * x.element_size()
+        k2_bound, k2_by = bound(nbytes + 2 * c * 4, 3 * x.numel())
+        k2b_bound, k2b_by = bound(2 * nbytes + 2 * c * 4, 2 * x.numel())
+        print(f"K2 bn_sums {shape} {dtype}: rel err {rel1:.3g}/{rel2:.3g}, "
+              f"max_abs_err {err}; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, torch.batch_norm_stats {library_ms:.4f} ms, bound "
+              f"{k2_bound:.4f} ms ({k2_by})")
+        print(f"K2b bn_sums_backward {shape} {dtype}: max_abs_err {bwd_err} "
+              f"against the plain version; kernel {bwd_ms:.4f} ms, plain "
+              f"{bwd_plain_ms:.4f} ms, bound {k2b_bound:.4f} ms ({k2b_by})")
+        if not records:
+            records = [
+                {"name": "bn_sums", "route": "cuda", "source": BN_SOURCE,
+                 "replaces": K2_REPLACES, "max_abs_err": err, "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": k2_bound,
+                 "bound_by": k2_by, "library_ms": library_ms},
+                {"name": "bn_sums_backward", "route": "cuda",
+                 "source": BN_SOURCE, "replaces": K2B_REPLACES,
+                 "max_abs_err": bwd_err, "ms": bwd_ms,
+                 "plain_ms": bwd_plain_ms, "bound_ms": k2b_bound,
+                 "bound_by": k2b_by, "library_ms": None}]
+        del x, dx
+
+    raised = False
+    try:
+        bn_sums(torch.zeros(2, 8, 4, 4, device="cuda"))
+    except ValueError:
+        raised = True
+    check(raised, "K2 took a tensor that is not channels_last")
+    return records
 
 
 def raw_batch(cfg, n):
@@ -214,6 +339,80 @@ def small_reference_phase():
           f"max_abs_err {err}")
 
 
+def nets_agree(got, want, updates: int, lr: float) -> str:
+    """The three networks of two train systems after ``updates`` Adam updates
+    each: at most 0.5% of a network's elements outside rtol 1e-3 / atol 2e-5
+    (running statistics atol 1e-5), none more than 2 lr per update apart.
+    Adam divides each gradient by its own magnitude, so an element whose
+    gradient is near zero takes an update that f32 rounding decides
+    (tests/test_torch_train.py).  Returns a summary."""
+    summary = []
+    for name in ("generator", "d_pb", "d_pp"):
+        a = getattr(got, name).state_dict()
+        b = getattr(want, name).state_dict()
+        outside = total = 0
+        worst = 0.0
+        for k, v in b.items():
+            if k.endswith("num_batches_tracked"):
+                continue
+            diff = (a[k].detach().cpu().float() - v.detach().cpu().float()).abs()
+            atol = 1e-5 if "running" in k else 2e-5
+            outside += int((diff > atol + 1e-3 * v.detach().cpu().abs()).sum())
+            total += v.numel()
+            worst = max(worst, float(diff.max()))
+        check(outside <= 0.005 * total and worst <= 2 * lr * updates,
+              f"{name}: {outside} of {total} elements differ, worst {worst}")
+        summary.append(f"{name} {outside}/{total} outside, max {worst:.3g}")
+    return "; ".join(summary)
+
+
+def small_train_phase():
+    """The toy train step on the card against the CPU, from the same weights
+    and batches: float32, TF32 off, dropout off, pool 0, 2 steps."""
+    import warnings
+
+    from mmhand_torch.config import (
+        Config,
+        DataConfig,
+        ModelConfig,
+        OptimConfig,
+        PrecisionConfig,
+    )
+    from mmhand_torch.data import make_prepare_batch
+    from mmhand_torch.train.state import build_system
+    from mmhand_torch.train.step import make_train_step
+
+    cfg = Config(model=ModelConfig(fine_size=32, ngf=8, ndf=8, g_n_blocks=2,
+                                   n_layers_d=2, use_dropout_g=False,
+                                   use_dropout_d=False),
+                 optim=OptimConfig(pool_size=0),
+                 data=DataConfig(dataset="synthetic", seed=SEED),
+                 precision=PrecisionConfig(compute_dtype="float32"))
+    lr = cfg.optim.lr
+    raw = raw_batch(cfg, 4)
+    full = make_prepare_batch(6.0, "cpu")(raw)
+    batches = [{k: v[i:i + 2] for k, v in full.items()} for i in (0, 2)]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the random-VGG warning, twice
+        on_cpu = build_system(cfg, "cpu")
+        on_card = build_system(cfg, "cuda")
+    step_cpu, step_card = make_train_step(on_cpu), make_train_step(on_card)
+    worst = 0.0
+    with tf32_off():
+        for batch in batches:
+            want = step_cpu(batch, lr)
+            got = step_card({k: v.cuda() for k, v in batch.items()}, lr)
+            for k, v in want.items():
+                # losses: the tests' tolerance against JAX, rtol/atol 2e-4
+                err = abs(float(got[k]) - float(v))
+                check(err <= 2e-4 * (1 + abs(float(v))),
+                      f"toy step loss {k}: card {float(got[k])}, cpu {float(v)}")
+                worst = max(worst, err)
+    summary = nets_agree(on_card, on_cpu, len(batches), lr)
+    print(f"small train reference (2 steps, f32, TF32 off): losses within "
+          f"{worst:.3g}; {summary}")
+
+
 def slice_phase(tmp: Path):
     """The full-width generation path through aug.main; returns K1 launches."""
     import torch
@@ -225,7 +424,7 @@ def slice_phase(tmp: Path):
     from mmhand_torch.scripts import aug
     from mmhand_torch.train.state import build_generator
     from mmhand_torch.train.step import make_eval_step
-    from mmhand_torch.utils.checkpoint import save_generator
+    from mmhand_torch.utils.checkpoint import save_network
     from mmhand_torch.utils.png import encode_png, read_png
 
     size, n_items, gen_batch = FULL["size"], FULL["n_items"], FULL["gen_batch"]
@@ -240,7 +439,7 @@ def slice_phase(tmp: Path):
     g = build_generator(cfg, "cuda", seed=SEED)
     n_params = sum(p.numel() for p in g.parameters())
     calibrate(g, batch)
-    save_generator(g, str(tmp / "ckpt"), "smoke")
+    save_network(g, str(tmp / "ckpt"), "smoke")
     print(f"generator: {n_params} parameters, saved to {tmp / 'ckpt' / 'smoke'}")
 
     dst = tmp / "fakes"
@@ -308,6 +507,166 @@ def slice_phase(tmp: Path):
     return launches
 
 
+def profile_step(fn) -> str:
+    """One call of ``fn`` under torch.profiler: the device time of K2's and
+    K2b's kernels, of all kernels, and the device's busy share of the
+    window.  The trace is untried on this machine, so a profiler that
+    yields no device time is reported, not failed."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    sums = {"K2": 0.0, "K2b": 0.0, "all": 0.0}
+    kernels = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0.0)
+        if ev.device_type != torch.autograd.DeviceType.CUDA or not us:
+            continue
+        kernels.append((us / 1e3, ev.count, ev.key))
+        sums["all"] += us / 1e3
+        if "bn_sums_backward_kernel" in ev.key:
+            sums["K2b"] += us / 1e3
+        elif "bn_sums_" in ev.key:
+            sums["K2"] += us / 1e3
+    if not sums["all"]:
+        return "profiled step: no device time in the trace (not measured)"
+    top = "\n".join(f"  {ms:9.3f} ms {n:5d}x {key[:90]}"
+                    for ms, n, key in sorted(kernels, reverse=True)[:12])
+    return (f"profiled step: K2 {sums['K2']:.3f} ms, K2b {sums['K2b']:.3f} ms, "
+            f"all kernels {sums['all']:.3f} ms of {wall_ms:.3f} ms wall "
+            f"(device busy {100 * sums['all'] / wall_ms:.1f}%); top kernels:\n"
+            f"{top}")
+
+
+def train_slice_phase(tmp: Path) -> dict:
+    """The full-width train step through scripts.train.main, then its
+    checkpoint through aug.main; returns the kernels' launches in the train
+    run."""
+    import math
+    import warnings
+
+    import torch
+
+    from mmhand_torch.config import Config, DataConfig, ModelConfig
+    from mmhand_torch.data import make_prepare_batch
+    from mmhand_torch.ops.bn_stats import bn_sums, bn_sums_backward
+    from mmhand_torch.ops.heatmap import gaussian_heatmaps
+    from mmhand_torch.scripts import aug
+    from mmhand_torch.scripts import train as train_script
+    from mmhand_torch.train.state import build_system
+    from mmhand_torch.train.step import make_train_step
+
+    steps, batch_size = TRAIN["steps"], TRAIN["batch"]
+    size = FULL["size"]
+    ckpt = tmp / "train_ckpt"
+    argv = ["--dataset", "synthetic", "--batchSize", str(batch_size),
+            "--fineSize", str(size), "--max_steps", str(steps),
+            "--print_freq", "1", "--checkpoints_dir", str(ckpt),
+            "--name", "train_smoke", "--device", "cuda"]
+    out = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    gaussian_heatmaps.launches = 0
+    bn_sums.launches = bn_sums_backward.launches = 0
+    start = time.perf_counter()
+    with warnings.catch_warnings(), contextlib.redirect_stdout(out):
+        warnings.simplefilter("ignore")  # the random-VGG warning
+        result = train_script.main(argv)
+    seconds = time.perf_counter() - start
+    launches = {"gaussian_heatmaps": gaussian_heatmaps.launches,
+                "bn_sums": bn_sums.launches,
+                "bn_sums_backward": bn_sums_backward.launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(out.getvalue().strip())
+
+    cfg = result.system.config
+    check(cfg.model.ngf == 64 and cfg.model.g_n_blocks == 9
+          and cfg.model.n_layers_d == 3 and cfg.model.norm == "batch"
+          and cfg.precision.compute_dtype == "bfloat16"
+          and cfg.optim.pool_size == 50 and cfg.optim.dg_ratio == 1
+          and cfg.loss.l1_type == "l1_plus_perL1", "flagship train config")
+    check(result.steps == steps, f"{result.steps} steps taken")
+    per_step = BN_PER_STEP
+    check(launches["bn_sums"] == per_step * steps
+          and launches["bn_sums_backward"] == per_step * steps
+          and launches["gaussian_heatmaps"] == 2 * steps,
+          f"launches in the train slice: {launches}")
+    lines = re.findall(r"\(epoch: \d+, iters: (\d+), time: [^)]*\) (.*)",
+                       out.getvalue())
+    check(len(lines) == steps, f"{len(lines)} loss lines for {steps} steps")
+    for it, rest in lines:
+        values = dict(re.findall(r"(\w+): (\S+)", rest))
+        check(set(values) == {"pair_L1loss", "pair_GANloss", "origin_L1",
+                              "perceptual", "D_PP", "D_PB"}
+              and all(math.isfinite(float(v)) for v in values.values()),
+              f"step {it} losses {values}")
+
+    # every network moved from its initial weights, and the running
+    # statistics of the discriminators moved from their init (0, 1)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        init = build_system(cfg, "cpu")
+    for name in ("generator", "d_pb", "d_pp"):
+        now = getattr(result.system, name).state_dict()
+        was = getattr(init, name).state_dict()
+        moved = [k for k in was if not k.endswith("num_batches_tracked")
+                 and not torch.equal(now[k].cpu(), was[k])]
+        weights = [k for k in was if k.endswith("weight")]
+        stats = [k for k in was if "running" in k]
+        check(set(weights) <= set(moved) and set(stats) <= set(moved),
+              f"{name}: {sorted(set(weights + stats) - set(moved))[:4]} "
+              f"did not move")
+    for net in ("netG", "netD_PB", "netD_PP"):
+        check((ckpt / "train_smoke" / f"latest_net_{net}.pth").exists(),
+              f"latest_net_{net}.pth not written")
+
+    # where one step's time goes, one phase at a time (CUDA events)
+    system = result.system
+    step = make_train_step(system)
+    lr = cfg.optim.lr
+    raw = raw_batch(cfg, batch_size)
+    prepare = make_prepare_batch(cfg.data.sigma, "cuda")
+    batch = prepare(raw)
+    fake, _ = step.g_phase(batch, lr)
+    h1, h2, p2 = batch["H1"], batch["H2"], batch["P2"]
+    real_pp, fake_pp = torch.cat([h2, h1], -1), torch.cat([fake, h1], -1)
+    real_pb, fake_pb = torch.cat([h2, p2], -1), torch.cat([fake, p2], -1)
+    times = {
+        "prepare": cuda_ms(lambda: prepare(raw), iters=5, warmup=1),
+        "G phase": cuda_ms(lambda: step.g_phase(batch, lr), iters=5, warmup=1),
+        "pool PP": cuda_ms(lambda: step.replay("pp", fake_pp), iters=5, warmup=1),
+        "D_PP phase": cuda_ms(lambda: step.d_phase("pp", real_pp, fake_pp, lr),
+                              iters=5, warmup=1),
+        "pool PB": cuda_ms(lambda: step.replay("pb", fake_pb), iters=5, warmup=1),
+        "D_PB phase": cuda_ms(lambda: step.d_phase("pb", real_pb, fake_pb, lr),
+                              iters=5, warmup=1),
+        "whole step": cuda_ms(lambda: step(batch, lr), iters=5, warmup=1),
+    }
+    print(profile_step(lambda: step(batch, lr)))
+    rate = result.images_per_sec
+    check(rate is not None and rate > 0, "train printed no steady rate")
+    print(f"train slice: {steps} steps at batch {batch_size} in {seconds:.3f} s "
+          f"(build and cuDNN warm-up included), {rate} images/s after the "
+          f"first step, peak device memory {peak_gib:.2f} GiB, launches "
+          f"{launches}")
+    print("train step phases at batch %d (CUDA events, median of 5, ms): %s"
+          % (batch_size, ", ".join(f"{k} {v:.3f}" for k, v in times.items())))
+
+    # the trained generator's checkpoint drives the generation path
+    written = aug.main(["--dataset", "synthetic", "--fineSize", str(size),
+                        "--max_dataset_size", str(batch_size),
+                        "--gen_batch", str(batch_size),
+                        "--checkpoints_dir", str(ckpt), "--name", "train_smoke",
+                        "--dst", str(tmp / "train_fakes"), "--device", "cuda"])
+    check(written == batch_size, f"aug wrote {written} fakes from the trained G")
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "mmhand_torch" / "__init__.py").exists():
         print("chip_smoke: mmhand_torch/ is not beside this script",
@@ -333,14 +692,25 @@ def main() -> int:
           f"({'compiled with nvcc' if fresh else 'already built'})")
 
     k1 = kernel_phase()
+    k2, k2b = bn_kernel_phase()
     small_reference_phase()
+    small_train_phase()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        k1["launches"] = slice_phase(Path(tmp))
-    check(k1["launches"] > 0, "K1 was not launched on the main path")
+        gen_k1 = slice_phase(Path(tmp))
+        check(gen_k1 > 0, "K1 was not launched on the generation path")
+        train = train_slice_phase(Path(tmp))
+    # K1 runs on both paths, K2 and K2b on the train path
+    k1["launches"] = gen_k1 + train["gaussian_heatmaps"]
+    k2["launches"] = train["bn_sums"]
+    k2b["launches"] = train["bn_sums_backward"]
+    print(f"launches: K1 {gen_k1} in the generation slice, "
+          f"{train['gaussian_heatmaps']} in the train slice; K2 "
+          f"{k2['launches']}, K2b {k2b['launches']} in the train slice")
 
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err",
-             "ms", "plain_ms"]
-    print(json.dumps({"kernels": [{k: k1[k] for k in order}]}))
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
+    print(json.dumps({"kernels": [{k: rec[k] for k in order}
+                                  for rec in (k1, k2, k2b)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
-"""mmhand_tpu generator variables -> mmhand_torch ``Generator`` state_dict.
+"""mmhand_tpu network variables -> mmhand_torch state_dicts.
 
-The exact inverse of ``convert_generator`` in tools/convert_mmhand_torch.py:
+The exact inverses of ``convert_generator`` and ``convert_discriminator`` in
+tools/convert_mmhand_torch.py:
 
   conv        HWIO -> OIHW
   conv-transpose  (kh, kw, I, O) -> (I, O, kh, kw), then both spatial axes
@@ -11,8 +12,11 @@ The exact inverse of ``convert_generator`` in tools/convert_mmhand_torch.py:
 The Sequential indices follow ``models.generator``: a stem is
 [pad, conv, bn, relu] then [conv, bn, relu] per downsampling; a PATBlock
 stream is [pad?, conv, bn, relu, dropout?, pad?, conv, bn?]; the up path is
-[convT, bn, relu] per level, then [pad, conv].  Batch norm only, as the
-converter.
+[convT, bn, relu] per level, then [pad, conv].  A discriminator is
+[pad, conv, bn, relu], [conv, bn, relu] per downsampling, then one
+ResnetBlock per index whose ``conv_block`` is laid out as a PATBlock image
+stream.  Batch norm only, as the converter.  The VGG features carry over
+from HWIO kernels to the torch indices of ``models.vgg``.
 """
 
 from __future__ import annotations
@@ -49,25 +53,43 @@ def _bn(params: dict, stats: dict) -> dict:
             "num_batches_tracked": torch.tensor(0, dtype=torch.long)}
 
 
+class _Converted:
+    """A port state_dict filled from one ``{"params", "batch_stats"}``
+    tree."""
+
+    def __init__(self, variables: dict):
+        self.params = variables["params"]
+        self.stats = variables["batch_stats"]
+        self.sd: dict[str, torch.Tensor] = {}
+
+    def put(self, prefix: str, leaves: dict) -> None:
+        self.sd.update({f"{prefix}.{k}": v for k, v in leaves.items()})
+
+    def bn(self, *path) -> dict:
+        p, s = self.params, self.stats
+        for seg in path:
+            p, s = p[seg], s[seg]
+        return _bn(p, s)
+
+
+def _block_indices(use_dropout: bool, pad_mode: str) -> tuple[int, int]:
+    """Sequential indices of the first and second conv of a residual stream
+    [pad?, conv, bn, relu, dropout?, pad?, conv, bn?]: a zero-padded conv
+    pads itself, with no pad layer."""
+    p = 0 if pad_mode == "zero" else 1
+    return p, 2 * p + 3 + int(use_dropout)
+
+
 def generator_state_dict_from_jax(variables: dict, *, use_dropout: bool = True,
                                   pad_mode: str = "reflect"
                                   ) -> dict[str, torch.Tensor]:
     """``{"params", "batch_stats"}`` of a mmhand_tpu Generator (numpy or jax
     arrays) -> state_dict of the mmhand_torch Generator built with the same
     ``use_dropout`` and PATBlock ``pad_mode``."""
-    params, stats = variables["params"], variables["batch_stats"]
-    sd: dict[str, torch.Tensor] = {}
-
-    def put(prefix: str, leaves: dict) -> None:
-        sd.update({f"{prefix}.{k}": v for k, v in leaves.items()})
-
-    def bn(*path):
-        p, s = params, stats
-        for seg in path:
-            p, s = p[seg], s[seg]
-        return _bn(p, s)
-
+    b = _Converted(variables)
+    params, put, bn = b.params, b.put, b.bn
     n_down = sum(1 for k in params if k.startswith("stream1_down"))
+    p, second_conv = _block_indices(use_dropout, pad_mode)
     for s in (1, 2, 3):
         prefix = f"stream{s}_down"
         put(f"{prefix}.1", _conv(params[f"stream{s}_in"]["PadConv_0"]))
@@ -78,25 +100,63 @@ def generator_state_dict_from_jax(variables: dict, *, use_dropout: bool = True,
                 _conv(params[node]["StridedConv_0"]["Conv_0"]))
             put(f"{prefix}.{5 + 3 * d}", bn(node, "Norm_0", "BatchNorm_0"))
 
-    # PATBlock streams: the zero-padded conv pads itself, with no pad layer
-    p = 0 if pad_mode == "zero" else 1
-    second_conv = 2 * p + 3 + int(use_dropout)
     n_blocks = sum(1 for k in params if k.startswith("att"))
-    for b in range(n_blocks):
+    for blk in range(n_blocks):
         for snum in (1, 2, 3):
-            node = params[f"att{b}"][f"stream{snum}"]
-            prefix = f"att.{b}.conv_block_stream{snum}"
+            node = params[f"att{blk}"][f"stream{snum}"]
+            prefix = f"att.{blk}.conv_block_stream{snum}"
             put(f"{prefix}.{p}", _conv(node["ConvNormRelu_0"]["PadConv_0"]))
-            put(f"{prefix}.{p + 1}", bn(f"att{b}", f"stream{snum}",
+            put(f"{prefix}.{p + 1}", bn(f"att{blk}", f"stream{snum}",
                                         "ConvNormRelu_0", "Norm_0",
                                         "BatchNorm_0"))
             put(f"{prefix}.{second_conv}", _conv(node["PadConv_0"]))
             if "Norm_0" in node:  # the image stream's trailing norm
                 put(f"{prefix}.{second_conv + 1}",
-                    bn(f"att{b}", f"stream{snum}", "Norm_0", "BatchNorm_0"))
+                    bn(f"att{blk}", f"stream{snum}", "Norm_0", "BatchNorm_0"))
 
     for d in range(n_down):
         put(f"stream1_up.{3 * d}", _convt(params[f"up{d}"]))
         put(f"stream1_up.{3 * d + 1}", bn(f"up{d}_norm", "BatchNorm_0"))
     put(f"stream1_up.{3 * n_down + 1}", _conv(params["out_conv"]))
+    return b.sd
+
+
+def discriminator_state_dict_from_jax(variables: dict, *,
+                                      use_dropout: bool = True,
+                                      pad_mode: str = "reflect"
+                                      ) -> dict[str, torch.Tensor]:
+    """``{"params", "batch_stats"}`` of a mmhand_tpu Discriminator -> state_dict
+    of the mmhand_torch Discriminator built with the same ``use_dropout`` and
+    ResnetBlock ``pad_mode``; the number of downsamplings and blocks is read
+    from the tree."""
+    b = _Converted(variables)
+    params, put, bn = b.params, b.put, b.bn
+    put("1", _conv(params["in_conv"]["PadConv_0"]))
+    put("2", bn("in_conv", "Norm_0", "BatchNorm_0"))
+    n_down = sum(1 for k in params if k.startswith("down"))
+    for d in range(n_down):
+        put(f"{4 + 3 * d}", _conv(params[f"down{d}"]["StridedConv_0"]["Conv_0"]))
+        put(f"{5 + 3 * d}", bn(f"down{d}", "Norm_0", "BatchNorm_0"))
+    p, second_conv = _block_indices(use_dropout, pad_mode)
+    n_blocks = sum(1 for k in params if k.startswith("res"))
+    for r in range(n_blocks):
+        node = params[f"res{r}"]
+        prefix = f"{4 + 3 * n_down + r}.conv_block"
+        put(f"{prefix}.{p}", _conv(node["ConvNormRelu_0"]["PadConv_0"]))
+        put(f"{prefix}.{p + 1}", bn(f"res{r}", "ConvNormRelu_0", "Norm_0",
+                                    "BatchNorm_0"))
+        put(f"{prefix}.{second_conv}", _conv(node["PadConv_0"]))
+        put(f"{prefix}.{second_conv + 1}", bn(f"res{r}", "Norm_0",
+                                              "BatchNorm_0"))
+    return b.sd
+
+
+def vgg_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """mmhand_tpu ``VGG19Features`` params (``conv<i>`` -> HWIO kernel, bias)
+    -> state_dict of the mmhand_torch ``VGG19Features`` (``<i>.weight`` OIHW,
+    ``<i>.bias``)."""
+    sd: dict[str, torch.Tensor] = {}
+    for name, leaves in params.items():
+        sd.update({f"{name.removeprefix('conv')}.{k}": v
+                   for k, v in _conv(leaves).items()})
     return sd

@@ -42,7 +42,7 @@ def host_shard(indices: np.ndarray, host_id: int, num_hosts: int) -> np.ndarray:
     return indices[host_id * per:(host_id + 1) * per]
 
 
-def make_prepare_batch(sigma: float = 6.0, device="cpu"):
+def make_prepare_batch(sigma: float = 6.0, device="cuda"):
     """Raw host arrays -> generator batch on ``device``.
 
     Returns a function of a raw batch dict that gives {H1, P1, D1, H2, P2, D2}

@@ -14,11 +14,14 @@ scales ~ N(1, 0.02), norm biases 0.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
 import torch
 from torch import nn
+
+from mmhand_torch.ops.bn_stats import bn_moments
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,27 +41,50 @@ class NormConfig:
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm with eps 1e-5 and momentum 0.1 (flax momentum 0.9).
 
-    Train mode normalizes with the f32 batch statistics and folds the
-    *biased* batch variance into ``running_var``, as flax (and so
-    mmhand_tpu) does; torch's own BatchNorm2d folds the unbiased one.  Eval
-    mode is torch's BatchNorm2d over the running statistics."""
+    Train mode normalizes with the f32 batch moments of ``ops.bn_moments``
+    (kernel K2 on a CUDA device), var = max(0, E[x^2] - E[x]^2) as flax's
+    fast variance and mmhand_tpu's ``_DotStatsBN`` (mmhand_tpu/models/
+    layers.py:177-193), and folds the *biased* batch variance into
+    ``running_var``; torch's own BatchNorm2d folds the unbiased one.  While
+    ``update_running_stats`` is False (``frozen_running_stats``), train mode
+    leaves the running statistics as they are.  Eval mode is torch's
+    BatchNorm2d over the running statistics."""
 
     def __init__(self, features: int):
         super().__init__(features, eps=1e-5, momentum=0.1)
+        self.update_running_stats = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        xf = x.float()
-        mean = xf.mean((0, 2, 3))
-        var = xf.var((0, 2, 3), unbiased=False)
-        with torch.no_grad():
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
-            self.num_batches_tracked += 1
+        mean, mean_sq = bn_moments(x)
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
+        if self.update_running_stats:
+            with torch.no_grad():
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
+                self.num_batches_tracked += 1
         scale = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean[:, None, None]) * scale[:, None, None]
+        y = (x.float() - mean[:, None, None]) * scale[:, None, None]
         return (y + self.bias[:, None, None]).to(x.dtype)
+
+
+@contextlib.contextmanager
+def frozen_running_stats(*nets: nn.Module):
+    """Train-mode forwards of ``nets`` inside the block keep their
+    BatchNorm2d running statistics unchanged, as the JAX step discards the
+    updates of the discriminator forwards in the G loss
+    (mmhand_tpu/train/step.py:224-236)."""
+    bns = [m for net in nets for m in net.modules()
+           if isinstance(m, BatchNorm2d)]
+    saved = [m.update_running_stats for m in bns]
+    for m in bns:
+        m.update_running_stats = False
+    try:
+        yield
+    finally:
+        for m, flag in zip(bns, saved):
+            m.update_running_stats = flag
 
 
 def norm_layer(cfg: NormConfig, features: int) -> nn.Module:

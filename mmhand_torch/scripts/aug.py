@@ -28,7 +28,7 @@ from mmhand_torch.data import HostLoader, build_dataset, make_prepare_batch
 from mmhand_torch.ops.image import denormalize_image
 from mmhand_torch.train.state import build_generator
 from mmhand_torch.train.step import make_eval_step
-from mmhand_torch.utils.checkpoint import generator_path, load_state_dict
+from mmhand_torch.utils.checkpoint import load_state_dict, network_path
 from mmhand_torch.utils.png import write_png
 
 
@@ -59,7 +59,7 @@ def generate(cfg: Config, dst: str, batch_size: int = 16, device="cuda",
         raise RuntimeError("device cuda was asked for, but torch sees no "
                            "CUDA device")
     if state_dict is None:
-        state_dict = load_state_dict(generator_path(
+        state_dict = load_state_dict(network_path(
             cfg.run.checkpoints_dir, cfg.run.name, cfg.run.which_epoch))
     generator = build_generator(cfg, device)
     generator.load_state_dict(state_dict)

@@ -1,6 +1,7 @@
-"""Generator checkpoints in the reference's own naming:
-``<checkpoints_dir>/<name>/<which_epoch>_net_netG.pth`` holding a state_dict
-(README "Quick start" step 3)."""
+"""Network checkpoints in the reference's own naming:
+``<checkpoints_dir>/<name>/<which_epoch>_net_<net>.pth`` holding a state_dict,
+with ``net`` one of netG, netD_PB, netD_PP (reference base_model.py
+save_network; README "Quick start" step 3)."""
 
 from __future__ import annotations
 
@@ -11,23 +12,23 @@ import torch
 from torch import nn
 
 
-def generator_path(checkpoints_dir: str, name: str,
-                   which_epoch: str = "latest") -> str:
-    return os.path.join(checkpoints_dir, name, f"{which_epoch}_net_netG.pth")
+def network_path(checkpoints_dir: str, name: str, which_epoch: str = "latest",
+                 net: str = "netG") -> str:
+    return os.path.join(checkpoints_dir, name, f"{which_epoch}_net_{net}.pth")
 
 
-def save_generator(generator: nn.Module, checkpoints_dir: str, name: str,
-                   which_epoch: str = "latest") -> str:
-    path = generator_path(checkpoints_dir, name, which_epoch)
+def save_network(module: nn.Module, checkpoints_dir: str, name: str,
+                 which_epoch: str = "latest", net: str = "netG") -> str:
+    path = network_path(checkpoints_dir, name, which_epoch, net)
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    torch.save({k: v.detach().cpu() for k, v in generator.state_dict().items()},
+    torch.save({k: v.detach().cpu() for k, v in module.state_dict().items()},
                path)
     return path
 
 
 def load_state_dict(path: str) -> dict[str, torch.Tensor]:
-    """A generator state_dict from a ``.pth`` (or its ``.npz`` dump), with the
-    reference's DataParallel ``module.`` and PATN wrapper ``model.`` prefixes
+    """A network state_dict from a ``.pth`` (or its ``.npz`` dump), with the
+    reference's DataParallel ``module.`` and wrapper ``model.`` prefixes
     removed."""
     if path.endswith(".npz"):
         with np.load(path) as z:

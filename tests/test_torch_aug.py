@@ -61,7 +61,7 @@ def _saved_generator(cfg, tmp_path, seed=0):
                     rng.normal(0, 0.05, m.num_features).astype(np.float32)))
                 m.running_var.copy_(torch.from_numpy(
                     rng.uniform(0.005, 0.05, m.num_features).astype(np.float32)))
-    return tckpt.save_generator(g, str(tmp_path / "ckpt"), "run")
+    return tckpt.save_network(g, str(tmp_path / "ckpt"), "run")
 
 
 def _jax_aug(monkeypatch):
@@ -171,10 +171,12 @@ def test_png_codec(tmp_path):
 
 
 def test_checkpoint_naming_and_prefixes(tmp_path):
-    assert tckpt.generator_path("ck", "run", "7") == os.path.join(
+    assert tckpt.network_path("ck", "run", "7") == os.path.join(
         "ck", "run", "7_net_netG.pth")
     path = tmp_path / "ref.pth"
     torch.save({"module.model.stream1_down.1.weight": torch.ones(2)}, path)
     assert list(tckpt.load_state_dict(str(path))) == ["stream1_down.1.weight"]
+    assert tckpt.network_path("ck", "run", "latest", "netD_PB") == os.path.join(
+        "ck", "run", "latest_net_netD_PB.pth")
     np.savez(tmp_path / "ref.npz", **{"model.att.0.x": np.zeros(3, np.float32)})
     assert list(tckpt.load_state_dict(str(tmp_path / "ref.npz"))) == ["att.0.x"]

@@ -12,12 +12,27 @@ import numpy as np
 import pytest
 import torch
 
+from mmhand_torch.config import (
+    Config,
+    DataConfig,
+    ModelConfig,
+    OptimConfig,
+    PrecisionConfig,
+)
 from mmhand_torch.data.loader import make_prepare_batch
+from mmhand_torch.ops.bn_stats import (
+    bn_sums,
+    bn_sums_backward,
+    bn_sums_backward_ref,
+    bn_sums_ref,
+)
 from mmhand_torch.ops.heatmap import (
     CLIP_LO,
     gaussian_heatmaps,
     gaussian_heatmaps_ref,
 )
+from mmhand_torch.train.state import build_system
+from mmhand_torch.train.step import make_train_step
 
 
 @pytest.fixture
@@ -89,3 +104,94 @@ def test_prepare_batch_on_card_matches_cpu(cuda):
         np.testing.assert_allclose(np.where(keep, got[k].cpu().numpy(), 0),
                                    np.where(keep, want[k].numpy(), 0),
                                    rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [
+    ((16, 64, 256, 256), torch.bfloat16),   # the train step's largest site
+    ((16, 512, 64, 64), torch.bfloat16),    # a PATBlock attention stream
+    ((4, 128, 32, 32), torch.float16),
+    ((3, 29, 37, 41), torch.float32)])      # ragged N and C
+def test_bn_kernels_match_plain(cuda, shape, dtype):
+    """K2 against the plain sums: f32 sums in another order, held relative
+    to sum |x| and sum x^2 at 1e-5.  K2b against the plain formula: the same
+    operations in the same order, so bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = (torch.randn(shape, generator=gen, device=cuda) * 1.5 + 0.3).to(
+        dtype).contiguous(memory_format=torch.channels_last)
+    before = (bn_sums.launches, bn_sums_backward.launches)
+    s1, s2 = bn_sums(x)
+    g1 = torch.randn(shape[1], generator=gen, device=cuda)
+    g2 = torch.randn(shape[1], generator=gen, device=cuda)
+    dx = bn_sums_backward(x, g1, g2)
+    torch.cuda.synchronize()
+    assert (bn_sums.launches, bn_sums_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    r1, r2 = bn_sums_ref(x)
+    assert float(((s1 - r1).abs() / x.float().abs().sum((0, 2, 3))).max()) <= 1e-5
+    assert float(((s2 - r2).abs() / r2).max()) <= 1e-5
+    assert dx.dtype == dtype and dx.is_contiguous(
+        memory_format=torch.channels_last)
+    assert torch.equal(dx, bn_sums_backward_ref(x, g1, g2))
+    again = bn_sums(x)  # no atomics: the same sums on every run
+    assert torch.equal(again[0], s1) and torch.equal(again[1], s2)
+
+
+@pytest.mark.cuda
+def test_bn_kernels_refuse_other_layouts(cuda):
+    x = torch.randn(2, 8, 4, 4, device=cuda)
+    with pytest.raises(ValueError, match="channels_last"):
+        bn_sums(x)
+    with pytest.raises(ValueError, match="channels_last"):
+        bn_sums_backward(x, torch.zeros(8, device=cuda),
+                         torch.zeros(8, device=cuda))
+    with pytest.raises(TypeError):
+        bn_sums(x.double().contiguous(memory_format=torch.channels_last))
+
+
+@pytest.mark.cuda
+def test_toy_train_step_on_card_matches_cpu(cuda):
+    """Two toy steps from the same weights and batches, f32 with TF32 off:
+    losses within the tests' 2e-4 against JAX, parameters as
+    tests/test_torch_train.py holds them against JAX (Adam lets f32
+    rounding decide the update of elements whose gradient is near zero)."""
+    cfg = Config(model=ModelConfig(fine_size=32, ngf=8, ndf=8, g_n_blocks=2,
+                                   n_layers_d=2, use_dropout_g=False,
+                                   use_dropout_d=False),
+                 optim=OptimConfig(pool_size=0),
+                 data=DataConfig(dataset="synthetic"),
+                 precision=PrecisionConfig(compute_dtype="float32"))
+    with pytest.warns(UserWarning, match="RANDOM VGG19"):
+        on_cpu = build_system(cfg, "cpu")
+    with pytest.warns(UserWarning, match="RANDOM VGG19"):
+        on_card = build_system(cfg, cuda)
+    rng = np.random.RandomState(9)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for _ in range(2):
+            batch = {k: torch.from_numpy(rng.uniform(
+                -1 if k[0] != "P" else 0, 1, (2, 32, 32, 21 if k[0] == "P"
+                                              else 3)).astype(np.float32))
+                for k in ("H1", "P1", "D1", "H2", "P2", "D2")}
+            want = make_train_step(on_cpu)(batch, 2e-4)
+            got = make_train_step(on_card)(
+                {k: v.to(cuda) for k, v in batch.items()}, 2e-4)
+            for k, v in want.items():
+                np.testing.assert_allclose(float(got[k]), float(v), rtol=2e-4,
+                                           atol=2e-4, err_msg=k)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    for name in ("generator", "d_pb", "d_pp"):
+        a = getattr(on_card, name).state_dict()
+        b = getattr(on_cpu, name).state_dict()
+        outside = total = 0
+        for k, v in b.items():
+            if k.endswith("num_batches_tracked"):
+                continue
+            diff = (a[k].cpu() - v).abs()
+            atol = 1e-5 if "running" in k else 2e-5
+            outside += int((diff > atol + 1e-3 * v.abs()).sum())
+            total += v.numel()
+            assert float(diff.max()) <= 2 * 2e-4 * 2, f"{name}.{k}"
+        assert outside <= 0.005 * total, f"{name}: {outside} of {total}"

@@ -1,9 +1,12 @@
 """mmhand_torch imports no JAX, and imports without a CUDA compiler.
 
 Checked in a subprocess: tests/conftest.py has already imported jax into
-this one.
+this one.  The sources of the port and chip_smoke.py are also read for
+imports of JAX, mmhand_tpu or the repo's tools, including imports inside
+functions that only run on the card.
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -26,16 +29,37 @@ names = [m.name for m in pkgutil.walk_packages(mmhand_torch.__path__,
                                                "mmhand_torch.")]
 for name in names:
     importlib.import_module(name)
-assert "mmhand_torch.scripts.aug" in names, names
+for name in ("scripts.aug", "scripts.train", "ops.bn_stats", "train.loop",
+             "train.pool", "models.discriminator", "models.vgg",
+             "losses.gan", "losses.perceptual"):
+    assert "mmhand_torch." + name in names, names
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                       "orbax", "mmhand_tpu"))
+                                       "orbax", "mmhand_tpu", "tools",
+                                       "convert_mmhand_torch",
+                                       "convert_torch_weights"))
 assert not leaked, leaked
 print(len(names))
 """
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 16
+    assert int(proc.stdout.strip()) >= 25
+
+
+def test_port_sources_import_no_jax():
+    banned = {"jax", "jaxlib", "flax", "optax", "orbax", "mmhand_tpu",
+              "tools", "convert_mmhand_torch", "convert_torch_weights"}
+    files = sorted((REPO / "mmhand_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py"]
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                roots = [a.name.split(".")[0] for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                roots = [(node.module or "").split(".")[0]]
+            else:
+                continue
+            assert not banned & set(roots), f"{path}:{node.lineno} {roots}"
 
 
 def test_build_module_imports_without_nvcc():
@@ -44,7 +68,7 @@ def test_build_module_imports_without_nvcc():
     code = """
 import shutil
 assert shutil.which("nvcc") is None
-from mmhand_torch.ops import _build, heatmap
+from mmhand_torch.ops import _build, bn_stats, heatmap
 assert _build.library_path().name.startswith("libmmhand_kernels-")
 """
     proc = _run(code, PATH=os.path.dirname(sys.executable),
