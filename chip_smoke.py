@@ -22,6 +22,18 @@
    launches of that run; checks the losses of every step, that every
    network and running statistic moved, and that ``aug.main`` generates
    from the saved generator; times one step's phases and profiles one step.
+6. Holds K3 (the jointsmap rasterizer) against its plain version run on the
+   CPU, bit for bit, and the evaluation modules on the card against the CPU
+   (Inception, SSIM, the CPM judge, the conditioning image), in float32
+   with TF32 off.
+7. Drives the evaluation path at full width (256 px, 64 pairs of the
+   synthetic dataset): ``mmhand_torch.scripts.evaluate_gan.main`` over the
+   generator the train phase saved (eval_batch 16), then
+   ``mmhand_torch.scripts.bench_baselines.main`` with the CycleGAN resnet
+   (ngf 64, 9 blocks) and the pix2pix UNet (8 downs) at eval_batch 8,
+   counting the kernel launches of each run; checks that every score is
+   finite over 64 images and that K3 ran once per baseline batch; times one
+   batch's parts and profiles one baseline batch.
 
 Prints the kernels' JSON line, then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.  Any failed phase raises
@@ -48,6 +60,7 @@ FULL = dict(size=256, ngf=64, gen_batch=16, n_items=64)
 K1_REPLACES = "mmhand_tpu/ops/heatmap.py:73"
 K2_REPLACES = "mmhand_tpu/ops/bn_stats.py:87"
 K2B_REPLACES = "mmhand_tpu/ops/bn_stats.py:73"
+K3_REPLACES = "mmhand_tpu/ops/jointsmap.py:115"
 BN_SOURCE = "mmhand_torch/csrc/bn_stats.cu"
 # the largest BatchNorm input of the train step, a PATBlock attention
 # stream's, and a ragged shape in f32
@@ -58,6 +71,18 @@ BN_SHAPES = [((16, 64, 256, 256), "bfloat16"), ((16, 512, 64, 64), "bfloat16"),
 # G, twice in the G loss's D forwards and twice in each D phase
 TRAIN = dict(steps=6, batch=16)
 BN_PER_STEP = 47 + 2 * 9 + 2 * 9 + 2 * 9
+# the evaluation slice: 64 pairs at 256 px; evaluate_gan at batch 16, the
+# baselines at batch 8 (the JAX scripts' defaults)
+EVAL = dict(n_items=64, gan_batch=16, baseline_batch=8)
+# K3's shapes: the baselines' batch, the generation batch, a ragged one,
+# then the edge cases at batch 2
+K3_SHAPES = [("poses", 8, 256, 256), ("poses", 16, 256, 256),
+             ("poses", 3, 70, 90), ("occlusion", 2, 256, 256),
+             ("tie", 2, 256, 256), ("zero_length", 2, 256, 256),
+             ("parked", 2, 256, 256)]
+# f32 operations per pixel and bone in K3: 2 subtractions, 6 products and
+# 3 sums, 2 divisions, 2 comparisons, 1 select
+K3_OPS_PER_PIXEL_BONE = 16
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM
 F32_FLOPS = 67e12           # H100 SXM, outside the tensor cores
 
@@ -507,41 +532,64 @@ def slice_phase(tmp: Path):
     return launches
 
 
-def profile_step(fn) -> str:
-    """One call of ``fn`` under torch.profiler: the device time of K2's and
-    K2b's kernels, of all kernels, and the device's busy share of the
-    window.  The trace is untried on this machine, so a profiler that
-    yields no device time is reported, not failed."""
+# the kernel of torch.cuda._sleep, which pad_trace_start launches
+PAD_KERNEL = "spin_kernel"
+
+
+def pad_trace_start() -> None:
+    """Launch and finish 32 short spin kernels at the start of a profiler
+    window.  Once the process has run a while, the H100's trace drops the
+    first ~10 device activities of a window (a UNet batch lost its
+    jointsmap_kernel, copy and normalize after 12-100 s of idle card); the
+    pad takes their place."""
+    import torch
+
+    for _ in range(32):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+
+
+def profile_step(fn, what: str, kernels: dict[str, str]) -> str:
+    """One call of ``fn`` under torch.profiler: the device time of the
+    port's kernels (label -> a substring of the kernel's name, the first
+    that matches counts), of all kernels, and the device's busy share of the
+    window.  A profiler that yields no device time is reported, not
+    failed."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pad_trace_start()
         start = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
-    sums = {"K2": 0.0, "K2b": 0.0, "all": 0.0}
-    kernels = []
+    sums = {k: [0.0, 0] for k in kernels}
+    total = 0.0
+    rows = []
     for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", 0.0)
-        if ev.device_type != torch.autograd.DeviceType.CUDA or not us:
+        if (ev.device_type != torch.autograd.DeviceType.CUDA
+                or PAD_KERNEL in ev.key):
             continue
-        kernels.append((us / 1e3, ev.count, ev.key))
-        sums["all"] += us / 1e3
-        if "bn_sums_backward_kernel" in ev.key:
-            sums["K2b"] += us / 1e3
-        elif "bn_sums_" in ev.key:
-            sums["K2"] += us / 1e3
-    if not sums["all"]:
-        return "profiled step: no device time in the trace (not measured)"
+        us = getattr(ev, "self_device_time_total", 0.0)
+        label = next((k for k, sub in kernels.items() if sub in ev.key), None)
+        if label is not None:
+            sums[label][0] += us / 1e3
+            sums[label][1] += ev.count
+        if us:
+            rows.append((us / 1e3, ev.count, ev.key))
+            total += us / 1e3
+    if not total:
+        return f"profiled {what}: no device time in the trace (not measured)"
     top = "\n".join(f"  {ms:9.3f} ms {n:5d}x {key[:90]}"
-                    for ms, n, key in sorted(kernels, reverse=True)[:12])
-    return (f"profiled step: K2 {sums['K2']:.3f} ms, K2b {sums['K2b']:.3f} ms, "
-            f"all kernels {sums['all']:.3f} ms of {wall_ms:.3f} ms wall "
-            f"(device busy {100 * sums['all'] / wall_ms:.1f}%); top kernels:\n"
-            f"{top}")
+                    for ms, n, key in sorted(rows, reverse=True)[:12])
+    ours = "".join(f"{k} {ms:.4f} ms in {n} launches, "
+                   for k, (ms, n) in sums.items())
+    return (f"profiled {what}: {ours}all kernels {total:.3f} ms of "
+            f"{wall_ms:.3f} ms wall (device busy {100 * total / wall_ms:.1f}%); "
+            f"top kernels:\n{top}")
 
 
 def train_slice_phase(tmp: Path) -> dict:
@@ -647,7 +695,8 @@ def train_slice_phase(tmp: Path) -> dict:
                               iters=5, warmup=1),
         "whole step": cuda_ms(lambda: step(batch, lr), iters=5, warmup=1),
     }
-    print(profile_step(lambda: step(batch, lr)))
+    print(profile_step(lambda: step(batch, lr), "train step",
+                       {"K2b": "bn_sums_backward_kernel", "K2": "bn_sums_"}))
     rate = result.images_per_sec
     check(rate is not None and rate > 0, "train printed no steady rate")
     print(f"train slice: {steps} steps at batch {batch_size} in {seconds:.3f} s "
@@ -665,6 +714,322 @@ def train_slice_phase(tmp: Path) -> dict:
                         "--dst", str(tmp / "train_fakes"), "--device", "cuda"])
     check(written == batch_size, f"aug wrote {written} fakes from the trained G")
     return launches
+
+
+def jointsmap_case(name: str, batch: int, height: int, width: int):
+    """Hand-sized poses (uv, z on the CPU) or one of the edge cases of
+    tests/test_torch_jointsmap.py: crossing bones (occlusion), equal depths
+    (ties), zero-length bones, joints parked off the frame."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(SEED)
+    scale = np.array([width, height], np.float32)
+    uv = ((rng.uniform(0.3, 0.7, (batch, 1, 2))
+           + rng.normal(0, 0.18, (batch, 21, 2))) * scale).astype(np.float32)
+    z = (rng.uniform(300, 700, (batch, 21)) / 700 * 255).astype(np.float32)
+    if name == "occlusion":
+        uv[:] = -500.0
+        z[:] = 1.0e6
+        uv[:, 1], uv[:, 2] = [20, 128], [236, 128]
+        uv[:, 5], uv[:, 6] = [128, 20], [128, 236]
+        z[:, [1, 2]], z[:, [5, 6]] = 0.2, 0.8
+    elif name == "tie":
+        z[:] = 100.0
+    elif name == "zero_length":
+        uv[:, 2] = uv[:, 1]
+        uv[:, 18] = uv[:, 19] = uv[:, 20] = uv[:, 17]
+    elif name == "parked":
+        uv[:, 5:] = [-1000.0, 4000.0]
+    return torch.from_numpy(uv), torch.from_numpy(z)
+
+
+def kernel_device_ms(fn, name: str, calls: int = 20) -> float:
+    """Device milliseconds of one launch of the kernel whose name contains
+    ``name``, from torch.profiler over ``calls`` calls of ``fn``: the kernel
+    alone, without the wrapper's host work that CUDA events around a call
+    also see.  NaN when the trace holds no device time (not measured)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pad_trace_start()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(ev, "self_device_time_total", 0.0)
+             for ev in prof.key_averages() if name in ev.key)
+    return us / 1e3 / calls if us else float("nan")
+
+
+def jointsmap_kernel_phase():
+    """K3 against generate_jointsmap_ref run on the CPU, bit for bit (the
+    plain version on the card multiplies by 1/5 where K3 and the CPU divide
+    by 5); returns its record, at the baselines' batch."""
+    import torch
+
+    from mmhand_torch.ops.jointsmap import (
+        HAND_BONES,
+        generate_jointsmap,
+        generate_jointsmap_ref,
+    )
+
+    record = {}
+    for name, batch, height, width in K3_SHAPES:
+        uv, z = jointsmap_case(name, batch, height, width)
+        uv_d, z_d = uv.cuda(), z.cuda()
+        got = generate_jointsmap(uv_d, z_d, height, width)
+        torch.cuda.synchronize()
+        want = generate_jointsmap_ref(uv, z, height, width)
+        check(got.shape == want.shape == (batch, height, width),
+              f"K3 shape {tuple(got.shape)}")
+        err = float((got.cpu() - want).abs().max())
+        check(err == 0.0, f"K3 {name} ({batch}, {height}, {width}) differs "
+                          f"from the plain version on the CPU by {err}")
+        on_card = generate_jointsmap_ref(uv_d, z_d, height, width).cpu()
+        flipped = int((on_card != want).sum())
+        line = (f"K3 generate_jointsmap {name} ({batch}, {height}, {width}): "
+                f"max_abs_err 0.0 against the CPU; the plain version on the "
+                f"card differs at {flipped} pixels")
+        if name == "poses" and height == 256:
+            ms = cuda_ms(lambda: generate_jointsmap(uv_d, z_d, height, width))
+            device_ms = kernel_device_ms(
+                lambda: generate_jointsmap(uv_d, z_d, height, width),
+                "jointsmap_kernel")
+            plain_ms = cuda_ms(
+                lambda: generate_jointsmap_ref(uv_d, z_d, height, width))
+            pixels = got.numel()
+            k3_bound, k3_by = bound(
+                pixels * 4 + uv.numel() * 4 + z.numel() * 4,
+                K3_OPS_PER_PIXEL_BONE * len(HAND_BONES) * pixels)
+            line += (f"; kernel {ms:.4f} ms per call ({device_ms:.4f} ms of "
+                     f"device time, profiler), plain {plain_ms:.4f} ms, bound "
+                     f"{k3_bound:.4f} ms ({k3_by}); no single PyTorch call "
+                     f"computes the same function")
+            if not record:
+                record = {"name": "generate_jointsmap", "route": "cuda",
+                          "source": "mmhand_torch/csrc/jointsmap.cu",
+                          "replaces": K3_REPLACES, "max_abs_err": err,
+                          "ms": ms, "plain_ms": plain_ms, "bound_ms": k3_bound,
+                          "bound_by": k3_by, "library_ms": None}
+        print(line)
+    return record
+
+
+def small_eval_phase():
+    """The evaluation modules on the card against the CPU at batch 2, in
+    float32 with TF32 off: the conditioning image (bit for bit), Inception
+    logits and pool features, per-image SSIM, Hpm2d heatmaps and Hpm3d z."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from mmhand_torch.eval import Evaluator, HPEJudge
+    from mmhand_torch.eval.evaluator import full_fp32
+
+    size = FULL["size"]
+    uv, z = jointsmap_case("poses", 2, size, size)
+    xyz = torch.cat([uv, z[..., None]], -1)
+    cond = Evaluator.create_input_image(xyz.cuda(), size)
+    check(torch.equal(cond.cpu(), Evaluator.create_input_image(xyz, size)),
+          "create_input_image on the card differs from the CPU")
+
+    judge_size = 128  # the CPM nets at 256 px take seconds on the host
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the random-weights warnings
+        on_cpu = Evaluator(judge=HPEJudge.random_init(judge_size, device="cpu"),
+                           device="cpu")
+        on_card = Evaluator(judge=HPEJudge.random_init(judge_size, device="cuda"),
+                            device="cuda")
+    rng = np.random.RandomState(SEED)
+    gt = torch.from_numpy(rng.uniform(-1, 1, (2, size, size, 3)).astype(np.float32))
+    pred = (gt * 0.8 + 0.1).contiguous()
+    errs = {}
+    for part, a, b in zip(("logits", "pool"),
+                          on_card.inception_forward(pred.cuda()),
+                          on_cpu.inception_forward(pred)):
+        errs[part] = float((a.cpu() - b).abs().max() / (b.abs().max() + 1e-12))
+    errs["ssim"] = float((on_card.ssim_forward(pred.cuda(), gt.cuda()).cpu()
+                          - on_cpu.ssim_forward(pred, gt)).abs().max())
+    small = pred[:, ::2, ::2].contiguous()
+    with full_fp32():
+        heat_card = on_card.judge.hpm2d(small.cuda())
+        heat_cpu = on_cpu.judge.hpm2d(small)
+        z_card = on_card.judge.hpm3d(heat_cpu[-1].cuda())
+        z_cpu = on_cpu.judge.hpm3d(heat_cpu[-1])
+    errs["heatmaps"] = max(float((a.cpu() - b).abs().max() / b.abs().max())
+                           for a, b in zip(heat_card, heat_cpu))
+    errs["z"] = float((z_card.cpu() - z_cpu).abs().max() / z_cpu.abs().max())
+    # f32 with TF32 off, conv taps summed in another order: 1e-4 of the
+    # largest value; SSIM absolute
+    check(all(v <= 1e-4 for k, v in errs.items() if k != "ssim")
+          and errs["ssim"] <= 1e-5, f"eval modules card vs CPU: {errs}")
+    print("small eval reference (batch 2, f32, TF32 off): create_input_image "
+          "bit for bit; relative errors "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+
+
+def _run_main(fn, argv):
+    """``fn(argv)`` with the kernels' counts set to 0 just before and read
+    just after; returns (its result, its stdout, seconds, launches)."""
+    import warnings
+
+    import torch
+
+    from mmhand_torch.ops.bn_stats import bn_sums, bn_sums_backward
+    from mmhand_torch.ops.heatmap import gaussian_heatmaps
+    from mmhand_torch.ops.jointsmap import generate_jointsmap
+
+    counted = {"gaussian_heatmaps": gaussian_heatmaps, "bn_sums": bn_sums,
+               "bn_sums_backward": bn_sums_backward,
+               "generate_jointsmap": generate_jointsmap}
+    out = io.StringIO()
+    for f in counted.values():
+        f.launches = 0
+    start = time.perf_counter()
+    with warnings.catch_warnings(), contextlib.redirect_stdout(out):
+        warnings.simplefilter("ignore")  # random Inception/CPM/baseline weights
+        result = fn(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = {k: f.launches for k, f in counted.items()}
+    return result, out.getvalue().strip(), seconds, launches
+
+
+def _check_scores(what: str, scores: dict, n_items: int) -> None:
+    import math
+
+    keys = ("IS_avg", "IS_std", "SSIM_avg", "SSIM_std", "pck2d_auc",
+            "pck3d_auc", "fid", "images_per_sec", "images_per_sec_steady")
+    check(all(k in scores and math.isfinite(scores[k]) for k in keys),
+          f"{what}: scores {scores}")
+    check(scores["images"] == n_items, f"{what}: {scores['images']} images")
+    check(scores["weights"] == "random:inception+cpm",
+          f"{what}: weights {scores['weights']}")
+
+
+def eval_slice_phase(tmp: Path) -> dict:
+    """The full-width evaluation path: evaluate_gan over the train phase's
+    generator, then bench_baselines with both jointsmap-conditioned
+    baselines; returns the kernels' launches over the three runs."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from mmhand_torch.config import Config, DataConfig, ModelConfig
+    from mmhand_torch.data import make_prepare_batch
+    from mmhand_torch.eval.evaluator import full_fp32
+    from mmhand_torch.models.inception import inception_preprocess
+    from mmhand_torch.scripts import bench_baselines, evaluate_gan
+    from mmhand_torch.train.state import build_generator
+    from mmhand_torch.train.step import make_eval_step
+    from mmhand_torch.utils.checkpoint import load_state_dict, network_path
+
+    size, n_items = FULL["size"], EVAL["n_items"]
+    common = ["--dataset", "synthetic", "--fineSize", str(size),
+              "--max_dataset_size", str(n_items), "--device", "cuda"]
+    ckpt = tmp / "train_ckpt"
+    total: dict[str, int] = {}
+    runs = [("evaluate_gan", evaluate_gan.main,
+             common + ["--eval_batch", str(EVAL["gan_batch"]),
+                       "--checkpoints_dir", str(ckpt), "--name", "train_smoke"],
+             EVAL["gan_batch"])]
+    for arch in ("resnet", "unet"):
+        runs.append((f"bench_baselines {arch}", bench_baselines.main,
+                     common + ["--arch", arch, "--ngf", str(FULL["ngf"]),
+                               "--eval_batch", str(EVAL["baseline_batch"])],
+                     EVAL["baseline_batch"]))
+    for what, fn, argv, batch in runs:
+        torch.cuda.reset_peak_memory_stats()
+        scores, out, seconds, launches = _run_main(fn, argv)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(out.splitlines()[-1])
+        _check_scores(what, scores, n_items)
+        batches = -(-n_items // batch)
+        k3_want = batches if what.startswith("bench") else 0
+        check(launches["generate_jointsmap"] == k3_want
+              and launches["gaussian_heatmaps"] == 2 * batches
+              and launches["bn_sums"] == launches["bn_sums_backward"] == 0,
+              f"{what}: launches {launches}")
+        print(f"{what}: {n_items} images at batch {batch} in {seconds:.3f} s "
+              f"(FID's 2048-d sqrtm on the host included), "
+              f"{scores['images_per_sec_steady']} images/s after the first "
+              f"batch, peak device memory {peak_gib:.2f} GiB, launches "
+              f"{launches}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    # where one batch's time goes, one part at a time (CUDA events)
+    cfg = Config(model=ModelConfig(fine_size=size, ngf=FULL["ngf"]),
+                 data=DataConfig(dataset="synthetic", seed=49), is_train=False)
+    raw = raw_batch(cfg, EVAL["gan_batch"])
+    batch = make_prepare_batch(cfg.data.sigma, "cuda")(raw)
+    generator = build_generator(cfg, "cuda")
+    generator.load_state_dict(load_state_dict(network_path(str(ckpt),
+                                                           "train_smoke")))
+    eval_step = make_eval_step(generator)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        evaluator = evaluate_gan.build_evaluator(size, "cuda")
+        baselines = {arch: bench_baselines.build_baseline(cfg, arch, "cuda")
+                     for arch in ("resnet", "unet")}
+    fakes, gt = eval_step(batch), batch["H2"]
+    judge = evaluator.judge
+
+    def judge_nets():
+        return judge.hpm3d(judge.hpm2d(fakes)[-1])
+
+    times = {
+        "MM-Hand G (16)": cuda_ms(lambda: eval_step(batch), iters=5),
+        "Inception (16)": cuda_ms(lambda: evaluator.inception_forward(fakes),
+                                  iters=5),
+        "SSIM (16)": cuda_ms(lambda: evaluator.ssim_forward(fakes, gt), iters=5),
+        "judge (16)": cuda_ms(lambda: judge.predict(fakes), iters=5),
+    }
+    with full_fp32():
+        times["judge nets (16)"] = cuda_ms(judge_nets, iters=5)
+    # what TF32 off costs: the same forwards with cuDNN's default TF32
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.inference_mode():
+            times["Inception TF32 (16)"] = cuda_ms(
+                lambda: evaluator.inception(inception_preprocess(fakes)),
+                iters=5)
+            times["judge nets TF32 (16)"] = cuda_ms(judge_nets, iters=5)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    nb = EVAL["baseline_batch"]
+    pose = {"tgt_uv": raw["tgt_uv"][:nb], "tgt_z": raw["tgt_z"][:nb]}
+    xyz = np.concatenate([pose["tgt_uv"], pose["tgt_z"][:, :, None]], -1)
+    cond = bench_baselines.jointsmap_condition(pose, size, "cuda")
+    times["K3 + normalize (8)"] = cuda_ms(
+        lambda: bench_baselines.jointsmap_condition(pose, size, "cuda"),
+        iters=10)
+    with torch.inference_mode():
+        for arch, net in baselines.items():
+            times[f"{arch} G (8)"] = cuda_ms(lambda: net(cond), iters=5)
+    evaluator.feed(fakes, gt, np.concatenate(
+        [raw["tgt_uv"], raw["tgt_z"][:, :, None]], -1))
+    start = time.perf_counter()
+    evaluator.evaluate()  # FID of 16 + the chunked IS, on the host
+    times["scores on the host (16)"] = (time.perf_counter() - start) * 1e3
+    print("eval batch parts (CUDA events, median, ms; the host scores by "
+          "host clock): " + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+
+    def one_baseline_batch():
+        with torch.inference_mode():
+            out = baselines["unet"](
+                bench_baselines.jointsmap_condition(pose, size, "cuda"))
+        evaluator.feed(out, gt[:nb], xyz)
+
+    print(profile_step(one_baseline_batch, "unet baseline batch of 8",
+                       {"K3": "jointsmap_kernel"}))
+    return total
 
 
 def main() -> int:
@@ -693,24 +1058,32 @@ def main() -> int:
 
     k1 = kernel_phase()
     k2, k2b = bn_kernel_phase()
+    k3 = jointsmap_kernel_phase()
     small_reference_phase()
     small_train_phase()
+    small_eval_phase()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         gen_k1 = slice_phase(Path(tmp))
         check(gen_k1 > 0, "K1 was not launched on the generation path")
         train = train_slice_phase(Path(tmp))
-    # K1 runs on both paths, K2 and K2b on the train path
-    k1["launches"] = gen_k1 + train["gaussian_heatmaps"]
+        evals = eval_slice_phase(Path(tmp))
+    # K1 runs on every path, K2 and K2b on the train path, K3 on the
+    # baselines' evaluation path
+    k1["launches"] = (gen_k1 + train["gaussian_heatmaps"]
+                      + evals["gaussian_heatmaps"])
     k2["launches"] = train["bn_sums"]
     k2b["launches"] = train["bn_sums_backward"]
+    k3["launches"] = evals["generate_jointsmap"]
     print(f"launches: K1 {gen_k1} in the generation slice, "
-          f"{train['gaussian_heatmaps']} in the train slice; K2 "
-          f"{k2['launches']}, K2b {k2b['launches']} in the train slice")
+          f"{train['gaussian_heatmaps']} in the train slice, "
+          f"{evals['gaussian_heatmaps']} in the evaluation slice; K2 "
+          f"{k2['launches']}, K2b {k2b['launches']} in the train slice; K3 "
+          f"{k3['launches']} in the evaluation slice")
 
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     print(json.dumps({"kernels": [{k: rec[k] for k in order}
-                                  for rec in (k1, k2, k2b)]}))
+                                  for rec in (k1, k2, k2b, k3)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,10 @@
 """mmhand_tpu network variables -> mmhand_torch state_dicts.
 
 The exact inverses of ``convert_generator`` and ``convert_discriminator`` in
-tools/convert_mmhand_torch.py:
+tools/convert_mmhand_torch.py, of ``convert_resnet_generator`` and
+``convert_unet_generator`` in tools/convert_baselines_torch.py, and of the
+npz loaders of mmhand_tpu's Inception-v3 (``load_inception_npz``) and CPM
+nets (``load_cpm_state_dict``):
 
   conv        HWIO -> OIHW
   conv-transpose  (kh, kw, I, O) -> (I, O, kh, kw), then both spatial axes
@@ -20,6 +23,8 @@ from HWIO kernels to the torch indices of ``models.vgg``.
 """
 
 from __future__ import annotations
+
+from collections.abc import Mapping
 
 import numpy as np
 import torch
@@ -160,3 +165,101 @@ def vgg_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
         sd.update({f"{name.removeprefix('conv')}.{k}": v
                    for k, v in _conv(leaves).items()})
     return sd
+
+
+def _named_tree(variables: dict, drop: tuple[str, ...] = ()
+                ) -> dict[str, torch.Tensor]:
+    """A flax tree whose module names are torch attribute names -> the torch
+    state_dict: conv kernels HWIO -> OIHW, dense kernels transposed,
+    scale -> weight, batch_stats mean/var -> running_mean/running_var.
+    Path segments in ``drop`` (flax's own wrapper names) are left out."""
+    sd: dict[str, torch.Tensor] = {}
+
+    def walk(node, path, stats):
+        for name, value in node.items():
+            if isinstance(value, Mapping):
+                walk(value, path + ([] if name in drop else [name]), stats)
+                continue
+            a = np.asarray(value)
+            if stats:
+                leaf = {"mean": "running_mean", "var": "running_var"}[name]
+            elif name == "kernel":
+                leaf = "weight"
+                a = np.transpose(a, (3, 2, 0, 1)) if a.ndim == 4 else a.T
+            else:
+                leaf = {"scale": "weight"}.get(name, name)
+            sd[".".join(path + [leaf])] = _tensor(a)
+            if leaf == "running_mean":
+                sd[".".join(path + ["num_batches_tracked"])] = torch.tensor(
+                    0, dtype=torch.long)
+
+    walk(variables["params"], [], False)
+    walk(variables.get("batch_stats", {}), [], True)
+    return sd
+
+
+def inception_state_dict_from_jax(variables: dict) -> dict[str, torch.Tensor]:
+    """``{"params", "batch_stats"}`` of the mmhand_tpu Inception3 ->
+    state_dict of ``models.inception.Inception3`` (torchvision keys)."""
+    return _named_tree(variables)
+
+
+def cpm_state_dict_from_jax(variables: dict) -> dict[str, torch.Tensor]:
+    """``{"params"}`` of the mmhand_tpu Hpm2d or Hpm3d -> state_dict of the
+    port's (the reference's keys: ``conv1_1.weight``, ``stage2.conv1.bias``,
+    ``depth_fc_1.weight``)."""
+    return _named_tree(variables, drop=("trunk", "Conv_0"))
+
+
+def resnet_generator_state_dict_from_jax(variables: dict, *,
+                                         use_dropout: bool = False,
+                                         pad_mode: str = "reflect"
+                                         ) -> dict[str, torch.Tensor]:
+    """``{"params", "batch_stats"}`` of a mmhand_tpu ResnetGenerator ->
+    state_dict of ``models.baselines.ResnetGenerator``: the discriminator's
+    stem, downsamplings and ResnetBlocks, then [convT, bn, relu] per level
+    and [pad, conv, tanh]."""
+    sd = discriminator_state_dict_from_jax(variables, use_dropout=use_dropout,
+                                           pad_mode=pad_mode)
+    b = _Converted(variables)
+    params, put = b.params, b.put
+    n_down = sum(1 for k in params if k.startswith("down"))
+    first_up = 4 + 3 * n_down + sum(1 for k in params if k.startswith("res"))
+    for d in range(n_down):
+        put(f"{first_up + 3 * d}", _convt(params[f"up{d}"]))
+        put(f"{first_up + 3 * d + 1}", b.bn(f"up{d}_norm", "BatchNorm_0"))
+    put(f"{first_up + 3 * n_down + 1}", _conv(params["out_conv"]))
+    return {**sd, **b.sd}
+
+
+def unet_generator_state_dict_from_jax(variables: dict
+                                       ) -> dict[str, torch.Tensor]:
+    """``{"params", "batch_stats"}`` of a mmhand_tpu UnetGenerator ->
+    state_dict of ``models.baselines.UnetGenerator``, whose nested
+    ``model.`` Sequentials are the reference's: the outermost level is
+    [downconv, sub, relu, convT, tanh], a middle one [leaky, downconv, bn,
+    sub, relu, convT, bn], the innermost [leaky, downconv, relu, convT,
+    bn]; a level's submodule sits at index 1 (outermost) or 3."""
+    b = _Converted(variables)
+    params, put, bn = b.params, b.put, b.bn
+    n_mid = sum(1 for k in params if k.startswith("mid"))
+    names = (["outer", "lvl1", "lvl2", "lvl4"]
+             + [f"mid{i}" for i in reversed(range(n_mid))] + ["inner"])
+    prefix = "model.model."
+    for name in names:
+        node = params[name]
+        if name == "outer":
+            put(f"{prefix}0", _conv(node["down"]))
+            put(f"{prefix}3", _convt(node["up"]))
+            prefix += "1.model."
+        elif name == "inner":
+            put(f"{prefix}1", _conv(node["down"]))
+            put(f"{prefix}3", _convt(node["up"]))
+            put(f"{prefix}4", bn(name, "up_norm", "BatchNorm_0"))
+        else:
+            put(f"{prefix}1", _conv(node["down"]))
+            put(f"{prefix}2", bn(name, "down_norm", "BatchNorm_0"))
+            put(f"{prefix}5", _convt(node["up"]))
+            put(f"{prefix}6", bn(name, "up_norm", "BatchNorm_0"))
+            prefix += "3.model."
+    return b.sd

@@ -130,12 +130,14 @@ def strided_conv(in_features: int, features: int, kernel: int = 3,
                      bias=use_bias)
 
 
-def up_conv(in_features: int, features: int,
-            use_bias: bool = False) -> nn.ConvTranspose2d:
-    """mmhand_tpu ``UpConv``: ConvTranspose2d(k3, s2, p1, op1), the
-    generator's 2x upsampler (reference models/Generator.py:243-253)."""
-    return nn.ConvTranspose2d(in_features, features, 3, stride=2, padding=1,
-                              output_padding=1, bias=use_bias)
+def up_conv(in_features: int, features: int, use_bias: bool = False,
+            kernel: int = 3, output_padding: int = 1) -> nn.ConvTranspose2d:
+    """mmhand_tpu ``UpConv``: a stride-2 ConvTranspose2d with padding 1, by
+    default (k3, op1), the generator's 2x upsampler (reference
+    models/Generator.py:243-253); the pix2pix UNet's is (k4, op0)."""
+    return nn.ConvTranspose2d(in_features, features, kernel, stride=2,
+                              padding=1, output_padding=output_padding,
+                              bias=use_bias)
 
 
 def conv_norm_relu(in_features: int, features: int, kernel: int,

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with nvcc at first use and load them.
 
-Every ``csrc/*.cu`` file is compiled into one shared library with a plain C
-interface, which ``ctypes`` loads.  The library lands in ``mmhand_torch/_build/``
+Every ``csrc/*.cu`` file is compiled by its own nvcc, all started together,
+and the objects are linked into one shared library with a plain C interface,
+which ``ctypes`` loads.  The library lands in ``mmhand_torch/_build/``
 under a name that hashes the sources and flags, so an edited source is never
 served a stale build.  Importing this module needs no compiler: nothing runs
 until ``load_library()`` is called, which only a CUDA tensor's path does.
@@ -22,7 +23,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 
 def _nvcc() -> str:
@@ -50,22 +51,37 @@ def library_path() -> Path:
     return BUILD_DIR / f"libmmhand_kernels-{digest.hexdigest()[:16]}.so"
 
 
-def build(out: Path) -> None:
-    """Compile every csrc/*.cu into ``out`` (written atomically)."""
-    out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *[str(s) for s in sorted(CSRC_DIR.glob("*.cu"))]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+def _run(procs: list[tuple[list[str], subprocess.Popen]]) -> None:
+    failed = []
+    for cmd, proc in procs:
+        stdout, stderr = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{stdout}{stderr}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def build(out: Path) -> None:
+    """Compile every csrc/*.cu, one nvcc each in parallel, and link them into
+    ``out`` (written atomically)."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objects, procs = [], []
+        for src in sorted(CSRC_DIR.glob("*.cu")):
+            obj = os.path.join(tmp, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+            objects.append(obj)
+        _run(procs)
+        lib = os.path.join(tmp, "lib.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objects]
+        _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True))])
+        os.replace(lib, out)
 
 
 @functools.lru_cache(maxsize=None)

@@ -26,11 +26,13 @@ from mmhand_torch.ops.bn_stats import (
     bn_sums_backward_ref,
     bn_sums_ref,
 )
+from mmhand_torch.eval import Evaluator, HPEJudge
 from mmhand_torch.ops.heatmap import (
     CLIP_LO,
     gaussian_heatmaps,
     gaussian_heatmaps_ref,
 )
+from mmhand_torch.ops.jointsmap import generate_jointsmap, generate_jointsmap_ref
 from mmhand_torch.train.state import build_system
 from mmhand_torch.train.step import make_train_step
 
@@ -195,3 +197,90 @@ def test_toy_train_step_on_card_matches_cpu(cuda):
             total += v.numel()
             assert float(diff.max()) <= 2 * 2e-4 * 2, f"{name}.{k}"
         assert outside <= 0.005 * total, f"{name}: {outside} of {total}"
+
+
+def _jointsmap_case(name, batch, height, width, seed=0):
+    """Hand-sized poses, plus the edge cases of tests/test_torch_jointsmap.py:
+    crossing bones (occlusion), equal depths (ties), zero-length bones and
+    joints parked off the frame."""
+    rng = np.random.RandomState(seed)
+    scale = np.array([width, height], np.float32)
+    uv = ((rng.uniform(0.3, 0.7, (batch, 1, 2))
+           + rng.normal(0, 0.18, (batch, 21, 2))) * scale).astype(np.float32)
+    z = (rng.uniform(300, 700, (batch, 21)) / 700 * 255).astype(np.float32)
+    if name == "occlusion":
+        uv[:] = -500.0
+        z[:] = 1.0e6
+        uv[:, 1], uv[:, 2] = [20, 128], [236, 128]
+        uv[:, 5], uv[:, 6] = [128, 20], [128, 236]
+        z[:, [1, 2]], z[:, [5, 6]] = 0.2, 0.8
+    elif name == "tie":
+        z[:] = 100.0
+    elif name == "zero_length":
+        uv[:, 2] = uv[:, 1]
+        uv[:, 18] = uv[:, 19] = uv[:, 20] = uv[:, 17]
+    elif name == "parked":
+        uv[:, 5:] = [-1000.0, 4000.0]
+    return torch.from_numpy(uv), torch.from_numpy(z)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,batch,height,width", [
+    ("poses", 16, 256, 256), ("poses", 8, 256, 256), ("poses", 3, 70, 90),
+    ("occlusion", 2, 256, 256), ("tie", 2, 256, 256),
+    ("zero_length", 2, 256, 256), ("parked", 2, 256, 256)])
+def test_jointsmap_kernel_equals_cpu_plain(cuda, name, batch, height, width):
+    """K3 against its plain version run on the CPU: bit for bit (one IEEE
+    rounding per operation on both).  The plain version run on the card is
+    not the yardstick: torch on CUDA divides by a Python scalar as a
+    multiply by its reciprocal."""
+    uv, z = _jointsmap_case(name, batch, height, width)
+    before = generate_jointsmap.launches
+    got = generate_jointsmap(uv.to(cuda), z.to(cuda), height, width)
+    torch.cuda.synchronize()
+    assert generate_jointsmap.launches == before + 1
+    assert got.shape == (batch, height, width) and got.is_cuda
+    assert torch.equal(got.cpu(), generate_jointsmap_ref(uv, z, height, width))
+
+
+@pytest.mark.cuda
+def test_jointsmap_kernel_checks_its_input(cuda):
+    uv, z = torch.zeros(2, 21, 2, device=cuda), torch.zeros(2, 21, device=cuda)
+    with pytest.raises(TypeError):
+        generate_jointsmap(uv.double(), z.double())
+    with pytest.raises(ValueError):
+        generate_jointsmap(torch.zeros(2, 20, 2, device=cuda), z[:, :20])
+    with pytest.raises(ValueError):
+        generate_jointsmap(uv.transpose(0, 1), z.t())
+    with pytest.raises(ValueError):
+        generate_jointsmap(uv, z.cpu())
+
+
+@pytest.mark.cuda
+def test_evaluator_on_card_matches_cpu(cuda):
+    """The conditioning image exactly; Inception, SSIM and the judge's z in
+    float32 with TF32 off, to 1e-4 (conv taps summed in another order)."""
+    uv, z = _jointsmap_case("poses", 2, 64, 64, seed=3)
+    xyz = torch.cat([uv, z[..., None]], -1)
+    cond = Evaluator.create_input_image(xyz.to(cuda), 64)
+    assert torch.equal(cond.cpu(), Evaluator.create_input_image(xyz, 64))
+
+    with pytest.warns(UserWarning, match="RANDOM"):
+        on_cpu = Evaluator(judge=HPEJudge.random_init(size=64, device="cpu"),
+                           device="cpu")
+    with pytest.warns(UserWarning, match="RANDOM"):
+        on_card = Evaluator(judge=HPEJudge.random_init(size=64, device=cuda),
+                            device=cuda)
+    rng = np.random.RandomState(4)
+    gt = torch.from_numpy(rng.uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32))
+    pred = (gt * 0.8).contiguous()
+    for a, b in zip(on_card.inception_forward(pred.to(cuda)),
+                    on_cpu.inception_forward(pred)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+    np.testing.assert_allclose(
+        on_card.ssim_forward(pred.to(cuda), gt.to(cuda)).cpu().numpy(),
+        on_cpu.ssim_forward(pred, gt).numpy(), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(on_card.judge.predict(pred.to(cuda))[2].cpu().numpy(),
+                               on_cpu.judge.predict(pred)[2].numpy(),
+                               rtol=1e-4, atol=1e-4 * 64)

@@ -31,7 +31,10 @@ for name in names:
     importlib.import_module(name)
 for name in ("scripts.aug", "scripts.train", "ops.bn_stats", "train.loop",
              "train.pool", "models.discriminator", "models.vgg",
-             "losses.gan", "losses.perceptual"):
+             "losses.gan", "losses.perceptual", "ops.jointsmap", "ops.ssim",
+             "eval.evaluator", "eval.metrics", "models.inception",
+             "models.cpm", "models.baselines", "scripts.evaluate_gan",
+             "scripts.bench_baselines"):
     assert "mmhand_torch." + name in names, names
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
@@ -43,7 +46,7 @@ print(len(names))
 """
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 25
+    assert int(proc.stdout.strip()) >= 35
 
 
 def test_port_sources_import_no_jax():
@@ -68,7 +71,7 @@ def test_build_module_imports_without_nvcc():
     code = """
 import shutil
 assert shutil.which("nvcc") is None
-from mmhand_torch.ops import _build, bn_stats, heatmap
+from mmhand_torch.ops import _build, bn_stats, heatmap, jointsmap
 assert _build.library_path().name.startswith("libmmhand_kernels-")
 """
     proc = _run(code, PATH=os.path.dirname(sys.executable),
