@@ -7,8 +7,11 @@
 2. Holds each kernel against its plain PyTorch version on the card, at the
    main paths' shapes and at a ragged one, and times it beside its plain
    version, its bound and, where one exists, the one PyTorch call that
-   computes the same function: K1 (heatmaps), K2 (BatchNorm sums) and K2b
-   (their backward).
+   computes the same function: K1 (heatmaps; also on the main paths'
+   keypoints and on its early-out's hard cases, with the share of elements
+   it skips), K2 (BatchNorm sums) and K2b (their backward).  Each kernel's
+   device time per call comes from the profiler beside its CUDA-event time,
+   which includes the wrapper's host work.
 3. Holds the port on the card against the port on the CPU (the path the
    tests hold against mmhand_tpu) on small inputs, in float32 with TF32
    off: batch preparation and a toy generator; two toy train steps.
@@ -21,9 +24,12 @@
    steps) through ``mmhand_torch.scripts.train.main``, counting the kernel
    launches of that run; checks the losses of every step, that every
    network and running statistic moved, and that ``aug.main`` generates
-   from the saved generator; times one step's phases and profiles one step.
+   from the saved generator; times one step's phases and profiles one step,
+   with K2's and K2b's bounds summed over the step's 101 BatchNorm calls.
 6. Holds K3 (the jointsmap rasterizer) against its plain version run on the
-   CPU, bit for bit, and the evaluation modules on the card against the CPU
+   CPU, bit for bit, on poses, the baselines' poses and degenerate bones,
+   with the share of (pixel, bone) pairs its tiles skip, and the
+   evaluation modules on the card against the CPU
    (Inception, SSIM, the CPM judge, the conditioning image), in float32
    with TF32 off.
 7. Drives the evaluation path at full width (256 px, 64 pairs of the
@@ -62,6 +68,11 @@ K2_REPLACES = "mmhand_tpu/ops/bn_stats.py:87"
 K2B_REPLACES = "mmhand_tpu/ops/bn_stats.py:73"
 K3_REPLACES = "mmhand_tpu/ops/jointsmap.py:115"
 BN_SOURCE = "mmhand_torch/csrc/bn_stats.cu"
+# each kernel's CUDA kernels, by the names the profiler shows
+K1_KERNELS = ("gaussian_heatmaps_kernel",)
+K2_KERNELS = ("bn_sums_partial_kernel", "bn_sums_finish_kernel")
+K2B_KERNELS = ("bn_sums_backward_kernel",)
+K3_KERNELS = ("jointsmap_kernel",)
 # the largest BatchNorm input of the train step, a PATBlock attention
 # stream's, and a ragged shape in f32
 BN_SHAPES = [((16, 64, 256, 256), "bfloat16"), ((16, 512, 64, 64), "bfloat16"),
@@ -79,7 +90,10 @@ EVAL = dict(n_items=64, gan_batch=16, baseline_batch=8)
 K3_SHAPES = [("poses", 8, 256, 256), ("poses", 16, 256, 256),
              ("poses", 3, 70, 90), ("occlusion", 2, 256, 256),
              ("tie", 2, 256, 256), ("zero_length", 2, 256, 256),
-             ("parked", 2, 256, 256)]
+             ("parked", 2, 256, 256), ("tiny", 2, 256, 256),
+             ("floor", 2, 256, 256), ("nan", 2, 256, 256),
+             ("long", 2, 256, 256), ("graze", 2, 256, 256),
+             ("graze", 3, 70, 90)]
 # f32 operations per pixel and bone in K3: 2 subtractions, 6 products and
 # 3 sums, 2 divisions, 2 comparisons, 1 select
 K3_OPS_PER_PIXEL_BONE = 16
@@ -108,6 +122,25 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_us(fn, calls: int = 500) -> float:
+    """Mean host microseconds of one call of ``fn`` by the host clock, after
+    warm-up and without a synchronise inside: with a tiny launch, the
+    wrapper's host work (checks, allocation, device guard, stream, the
+    launch), which an isolated call's CUDA-event time adds to its device
+    time."""
+    import torch
+
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
 
 
 @contextlib.contextmanager
@@ -152,45 +185,130 @@ def heatmap_error(got, want, uv, height, width, sigma):
     return float(((got - want).abs() * keep).max()), int((~keep).sum())
 
 
-def kernel_phase():
-    """K1 against gaussian_heatmaps_ref on the card; returns its record."""
+def heatmap_case(name: str, sigma: float, batch: int, height: int,
+                 width: int):
+    """K1's early-out cases of tests/test_torch_cuda.py (on the CPU):
+    keypoints on the frame's edges and corners (edges), off it (off_frame),
+    or with pixel (30, 10 + dy) at d^2 within a few ulps of the threshold
+    (near_threshold)."""
+    import numpy as np
     import torch
 
+    from mmhand_torch.ops.heatmap import skip_d2
+
+    rng = np.random.RandomState(SEED)
+    size = np.array([width - 1, height - 1], np.float32)
+    uv = rng.uniform(0, 1, (batch, 21, 2)) * size
+    if name == "edges":
+        side = rng.randint(0, 2, (batch, 21))
+        edge = rng.randint(0, 2, (batch, 21)) * size[side]
+        np.put_along_axis(uv, side[..., None], edge[..., None], -1)
+        uv[:, :4] = [[0, 0], [width - 1, 0], [0, height - 1], size]
+        uv[:, 4:8] += rng.choice([-0.5, 0.5], (batch, 4, 2))
+    elif name == "off_frame":
+        far = rng.uniform(0.5, 40, (batch, 21))
+        uv[:, :7, 0] = -far[:, :7]
+        uv[:, 7:14, 0] = width - 1 + far[:, 7:14]
+        uv[:, 14:, 1] = rng.choice([-1, 1], (batch, 7)) * (height + far[:, 14:])
+    elif name == "near_threshold":
+        t = np.float64(np.float32(skip_d2(sigma)))
+        dy = np.arange(21) % int(np.sqrt(t))
+        eps = rng.choice([-3e-7, -1e-7, 0.0, 1e-7, 3e-7], (batch, 21))
+        uv = np.stack(np.broadcast_arrays(
+            30.0 - np.sqrt(t * (1 + eps) - dy * dy), 10.0 - dy), -1)
+    return torch.from_numpy(np.asarray(uv, np.float32))
+
+
+def check_heatmaps(uv, height: int, width: int, sigma: float, what: str):
+    """K1 on the card against the plain version on the card (max |error|
+    off the clip boundary at most 1e-6: the plain version on CUDA divides by
+    2 sigma^2 as a multiply by its reciprocal, K1 divides), and 0 wherever
+    the early-out skipped, as the plain version is there.  Returns (error,
+    exempt pixels, skipped share)."""
+    import torch
+
+    from mmhand_torch.ops.heatmap import (
+        gaussian_heatmaps,
+        gaussian_heatmaps_ref,
+        skipped_elements,
+    )
+
+    got = gaussian_heatmaps(uv, height, width, sigma)
+    torch.cuda.synchronize()
+    want = gaussian_heatmaps_ref(uv, height, width, sigma)
+    check(got.shape == want.shape == uv.shape[:-2] + (height, width, 21),
+          f"K1 {what}: shape {tuple(got.shape)}")
+    err, exempt = heatmap_error(got, want, uv, height, width, sigma)
+    check(err <= 1e-6, f"K1 {what}: differs from the plain version by {err}")
+    check(exempt <= 1e-3 * got.numel(), f"K1 {what}: {exempt} pixels exempt")
+    skipped = skipped_elements(uv, height, width, sigma)
+    check(not bool(want[skipped].any()) and not bool(got[skipped].any()),
+          f"K1 {what}: an element the early-out skips is not 0")
+    return err, exempt, float(skipped.float().mean())
+
+
+def kernel_phase():
+    """K1 against gaussian_heatmaps_ref on the card, at the main paths'
+    shape, on the main paths' keypoints, on the early-out's hard cases and
+    at a ragged shape; returns its record."""
+    import torch
+
+    from mmhand_torch.config import Config, DataConfig, ModelConfig
     from mmhand_torch.ops.heatmap import gaussian_heatmaps, gaussian_heatmaps_ref
 
     rng = torch.Generator().manual_seed(SEED)
-    record = {}
-    for batch, height, width in [(FULL["gen_batch"], FULL["size"], FULL["size"]),
-                                 (3, 70, 90)]:
-        scale = torch.tensor([width, height], dtype=torch.float32)
-        uv = (torch.rand(batch, 21, 2, generator=rng) * 1.2 - 0.1) * scale
-        uv = uv.cuda()
-        got = gaussian_heatmaps(uv, height, width, 6.0)
-        torch.cuda.synchronize()
-        want = gaussian_heatmaps_ref(uv, height, width, 6.0)
-        torch.cuda.synchronize()
-        check(got.shape == want.shape == (batch, height, width, 21),
-              f"heatmap shape {tuple(got.shape)}")
-        err, exempt = heatmap_error(got, want, uv, height, width, 6.0)
-        # the plain version on CUDA divides by 2 sigma^2 as a multiply by
-        # its reciprocal, K1 divides: a last-bit difference before exp
-        check(err <= 1e-6, f"K1 differs from the plain version by {err}")
-        ms = cuda_ms(lambda: gaussian_heatmaps(uv, height, width, 6.0))
-        plain_ms = cuda_ms(lambda: gaussian_heatmaps_ref(uv, height, width, 6.0))
-        print(f"K1 gaussian_heatmaps ({batch}, {height}, {width}, 21): "
-              f"max_abs_err {err} ({exempt} clip-boundary pixels exempt); "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per call")
-        # f32 writes of the output, ~8 f32 operations and one exp per pixel
-        k1_bound, k1_by = bound(got.numel() * 4 + uv.numel() * 4,
-                                9 * got.numel())
-        print(f"K1 bound {k1_bound:.4f} ms ({k1_by}); no single PyTorch call "
-              f"computes the same function")
-        if not record:
-            record = {"name": "gaussian_heatmaps", "route": "cuda",
-                      "source": "mmhand_torch/csrc/heatmap.cu",
-                      "replaces": K1_REPLACES, "max_abs_err": err,
-                      "ms": ms, "plain_ms": plain_ms, "bound_ms": k1_bound,
-                      "bound_by": k1_by, "library_ms": None}
+    batch, size, sigma = FULL["gen_batch"], FULL["size"], 6.0
+    uv = ((torch.rand(batch, 21, 2, generator=rng) * 1.2 - 0.1) * size).cuda()
+    err, exempt, skipped = check_heatmaps(uv, size, size, sigma, "uniform")
+    ms = cuda_ms(lambda: gaussian_heatmaps(uv, size, size, sigma))
+    device_ms = kernel_device_ms(
+        lambda: gaussian_heatmaps(uv, size, size, sigma), K1_KERNELS)
+    plain_ms = cuda_ms(lambda: gaussian_heatmaps_ref(uv, size, size, sigma))
+    out_bytes = batch * size * size * 21 * 4
+    # f32 writes of the output; the exp and its ~9 operations only where
+    # the early-out leaves an element
+    k1_bound, k1_by = bound(out_bytes + uv.numel() * 4,
+                            9 * (1 - skipped) * out_bytes / 4)
+    tiny = uv[:1] * (8.0 / size)
+    wrapper_us = host_us(lambda: gaussian_heatmaps(tiny, 8, 8, sigma))
+    print(f"K1 gaussian_heatmaps ({batch}, {size}, {size}, 21), keypoints "
+          f"uniform over the frame +-10%: max_abs_err {err} ({exempt} "
+          f"clip-boundary pixels exempt); early-out skips {skipped:.4f} of "
+          f"the elements; kernel {ms:.4f} ms per call ({device_ms:.4f} ms of "
+          f"device time, profiler; the wrapper's host work {wrapper_us:.1f} "
+          f"us per call at (1, 8, 8)), plain {plain_ms:.4f} ms, bound "
+          f"{k1_bound:.4f} ms ({k1_by}); no single PyTorch call computes the "
+          f"same function")
+    record = {"name": "gaussian_heatmaps", "route": "cuda",
+              "source": "mmhand_torch/csrc/heatmap.cu",
+              "replaces": K1_REPLACES, "max_abs_err": err, "ms": ms,
+              "plain_ms": plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
+              "library_ms": None, "device_ms": device_ms}
+
+    # the keypoints the main paths render: the synthetic set's first batch
+    cfg = Config(model=ModelConfig(fine_size=size),
+                 data=DataConfig(dataset="synthetic"), is_train=False)
+    raw = raw_batch(cfg, batch)
+    for side in ("src_uv", "tgt_uv"):
+        uv = torch.from_numpy(raw[side]).cuda()
+        err, exempt, skipped = check_heatmaps(uv, size, size, sigma, side)
+        ms = cuda_ms(lambda: gaussian_heatmaps(uv, size, size, sigma))
+        device_ms = kernel_device_ms(
+            lambda: gaussian_heatmaps(uv, size, size, sigma), K1_KERNELS)
+        print(f"K1 on the main paths' {side} ({batch}, {size}, {size}, 21): "
+              f"max_abs_err {err} ({exempt} exempt); early-out skips "
+              f"{skipped:.4f} of the elements; kernel {ms:.4f} ms per call "
+              f"({device_ms:.4f} ms of device time)")
+        if side == "tgt_uv":
+            record["skipped_share"] = skipped
+
+    for name in ("edges", "off_frame", "near_threshold"):
+        for s in (5.0, 6.0):
+            for b, h, w in ((batch, size, size), (3, 70, 90)):
+                uv = heatmap_case(name, s, b, h, w).cuda()
+                err, exempt, skipped = check_heatmaps(uv, h, w, s, name)
+                print(f"K1 {name} sigma {s} ({b}, {h}, {w}, 21): max_abs_err "
+                      f"{err} ({exempt} exempt), skips {skipped:.4f}")
     return record
 
 
@@ -270,16 +388,23 @@ def bn_kernel_phase():
               f"against the plain version; kernel {bwd_ms:.4f} ms, plain "
               f"{bwd_plain_ms:.4f} ms, bound {k2b_bound:.4f} ms ({k2b_by})")
         if not records:
+            device_ms = kernel_device_ms(lambda: bn_sums(x), K2_KERNELS)
+            bwd_device_ms = kernel_device_ms(
+                lambda: bn_sums_backward(x, g1, g2), K2B_KERNELS)
+            print(f"K2 / K2b at {shape}: {device_ms:.4f} / {bwd_device_ms:.4f} "
+                  f"ms of device time per call (profiler)")
             records = [
                 {"name": "bn_sums", "route": "cuda", "source": BN_SOURCE,
                  "replaces": K2_REPLACES, "max_abs_err": err, "ms": ms,
                  "plain_ms": plain_ms, "bound_ms": k2_bound,
-                 "bound_by": k2_by, "library_ms": library_ms},
+                 "bound_by": k2_by, "library_ms": library_ms,
+                 "device_ms": device_ms, "skipped_share": None},
                 {"name": "bn_sums_backward", "route": "cuda",
                  "source": BN_SOURCE, "replaces": K2B_REPLACES,
                  "max_abs_err": bwd_err, "ms": bwd_ms,
                  "plain_ms": bwd_plain_ms, "bound_ms": k2b_bound,
-                 "bound_by": k2b_by, "library_ms": None}]
+                 "bound_by": k2b_by, "library_ms": None,
+                 "device_ms": bwd_device_ms, "skipped_share": None}]
         del x, dx
 
     raised = False
@@ -549,12 +674,12 @@ def pad_trace_start() -> None:
     torch.cuda.synchronize()
 
 
-def profile_step(fn, what: str, kernels: dict[str, str]) -> str:
+def profile_step(fn, what: str, kernels: dict[str, tuple[str, ...]]):
     """One call of ``fn`` under torch.profiler: the device time of the
-    port's kernels (label -> a substring of the kernel's name, the first
-    that matches counts), of all kernels, and the device's busy share of the
-    window.  A profiler that yields no device time is reported, not
-    failed."""
+    port's kernels (label -> the names of its kernels; a kernel that two
+    labels name fails), of all kernels, and the device's busy share of the
+    window.  Returns (a report, {label: (ms, launches)}); a profiler that
+    yields no device time is reported, not failed, and gives {}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -574,22 +699,60 @@ def profile_step(fn, what: str, kernels: dict[str, str]) -> str:
                 or PAD_KERNEL in ev.key):
             continue
         us = getattr(ev, "self_device_time_total", 0.0)
-        label = next((k for k, sub in kernels.items() if sub in ev.key), None)
-        if label is not None:
+        labels = [k for k, names in kernels.items()
+                  if any(name in ev.key for name in names)]
+        check(len(labels) <= 1, f"{ev.key} counts under {labels}")
+        for label in labels:
             sums[label][0] += us / 1e3
             sums[label][1] += ev.count
         if us:
             rows.append((us / 1e3, ev.count, ev.key))
             total += us / 1e3
     if not total:
-        return f"profiled {what}: no device time in the trace (not measured)"
+        return (f"profiled {what}: no device time in the trace (not "
+                f"measured)", {})
     top = "\n".join(f"  {ms:9.3f} ms {n:5d}x {key[:90]}"
                     for ms, n, key in sorted(rows, reverse=True)[:12])
     ours = "".join(f"{k} {ms:.4f} ms in {n} launches, "
                    for k, (ms, n) in sums.items())
     return (f"profiled {what}: {ours}all kernels {total:.3f} ms of "
             f"{wall_ms:.3f} ms wall (device busy {100 * total / wall_ms:.1f}%); "
-            f"top kernels:\n{top}")
+            f"top kernels:\n{top}", {k: tuple(v) for k, v in sums.items()})
+
+
+def bn_step_bounds(step, batch, lr, sums: dict) -> str:
+    """K2's and K2b's bounds per train step: the sum over the step's
+    train-mode BatchNorm calls of each call's bound (K2 reads x, K2b reads x
+    and writes dx), beside their profiled device time per step."""
+    from mmhand_torch.models.layers import BatchNorm2d
+
+    sites = []
+
+    def record(module, args):
+        if module.training:
+            x = args[0]
+            sites.append((x.numel(), x.element_size(), x.shape[1]))
+
+    nets = (step.system.generator, step.system.d_pb, step.system.d_pp)
+    hooks = [m.register_forward_pre_hook(record) for net in nets
+             for m in net.modules() if isinstance(m, BatchNorm2d)]
+    try:
+        step(batch, lr)
+    finally:
+        for h in hooks:
+            h.remove()
+    check(len(sites) == BN_PER_STEP, f"{len(sites)} BatchNorm calls per step")
+    k2 = sum(bound(n * e + 2 * c * 4, 3 * n)[0] for n, e, c in sites)
+    k2b = sum(bound(2 * n * e + 2 * c * 4, 2 * n)[0] for n, e, c in sites)
+    gb = sum(n * e for n, e, _ in sites) / 1e9
+    line = (f"BatchNorm sites per train step: {len(sites)}, {gb:.3f} GB of "
+            f"inputs; bound per step K2 {k2:.4f} ms, K2b {k2b:.4f} ms")
+    for label, bound_ms in (("K2", k2), ("K2b", k2b)):
+        if label in sums:
+            ms, n = sums[label]
+            line += (f"; {label} {ms:.4f} ms of device time in {n} launches "
+                     f"(profiler), {100 * bound_ms / ms:.1f}% of its bound")
+    return line
 
 
 def train_slice_phase(tmp: Path) -> dict:
@@ -695,8 +858,11 @@ def train_slice_phase(tmp: Path) -> dict:
                               iters=5, warmup=1),
         "whole step": cuda_ms(lambda: step(batch, lr), iters=5, warmup=1),
     }
-    print(profile_step(lambda: step(batch, lr), "train step",
-                       {"K2b": "bn_sums_backward_kernel", "K2": "bn_sums_"}))
+    report, sums = profile_step(
+        lambda: step(batch, lr), "train step",
+        {"K2": K2_KERNELS, "K2b": K2B_KERNELS})
+    print(report)
+    print(bn_step_bounds(step, batch, lr, sums))
     rate = result.images_per_sec
     check(rate is not None and rate > 0, "train printed no steady rate")
     print(f"train slice: {steps} steps at batch {batch_size} in {seconds:.3f} s "
@@ -718,8 +884,11 @@ def train_slice_phase(tmp: Path) -> dict:
 
 def jointsmap_case(name: str, batch: int, height: int, width: int):
     """Hand-sized poses (uv, z on the CPU) or one of the edge cases of
-    tests/test_torch_jointsmap.py: crossing bones (occlusion), equal depths
-    (ties), zero-length bones, joints parked off the frame."""
+    tests/test_torch_cuda.py: crossing bones (occlusion), equal depths
+    (ties), zero-length bones, joints parked off the frame; then the cull's
+    degenerate cases: bones of length 1e-7 and 5e-7 (tiny), half_len at its
+    1e-3 floor (floor), NaN keypoints and depths (nan), long bones crossing
+    the frame (long), ellipses touching the warp tiles' edges (graze)."""
     import numpy as np
     import torch
 
@@ -741,14 +910,64 @@ def jointsmap_case(name: str, batch: int, height: int, width: int):
         uv[:, 18] = uv[:, 19] = uv[:, 20] = uv[:, 17]
     elif name == "parked":
         uv[:, 5:] = [-1000.0, 4000.0]
+    elif name == "tiny":
+        uv[:, 1], uv[:, 2] = [1e-7, 0.0], [0.0, 0.0]
+        uv[:, 5], uv[:, 6] = [2e-7, 3e-7], [5e-7, -1e-7]
+        z[:, [1, 2, 5, 6]] = 50.0
+    elif name == "floor":
+        uv[:, 9] = [width / 2, height / 2]
+        uv[:, 10] = uv[:, 9] + [1e-3, 0.0]
+        uv[:, 14] = [width / 4 + 0.5, height / 4]
+        uv[:, 15] = uv[:, 14] + [0.0, 2e-3]
+        z[:, [9, 10, 14, 15]] = 10.0
+    elif name == "nan":
+        uv[:, 3] = np.nan
+        uv[:, 7, 0] = np.nan
+        z[:, 12] = np.nan
+    elif name == "long":
+        uv[:, 17], uv[:, 18] = [-3000.0, 0.2 * height], [3000.0, 0.85 * height]
+        uv[:, 13], uv[:, 14] = [0.5 * width, -4000.0], [0.4 * width, 4000.0]
+        z[:, [13, 14, 17, 18]] = 20.0
+    elif name == "graze":
+        uv[:, 1], uv[:, 2] = [16.0, 40.0], [32.0, 40.0]
+        uv[:, 5], uv[:, 6] = [70.0, 24.0], [70.0, 48.0]
+        uv[:, 9], uv[:, 10] = [100.0, 35.0], [120.0, 35.0]
+        uv[:, 13], uv[:, 14] = [44.0, 60.0], [60.0, 76.0]
+        z[:, [1, 2, 5, 6, 9, 10, 13, 14]] = 30.0
     return torch.from_numpy(uv), torch.from_numpy(z)
 
 
-def kernel_device_ms(fn, name: str, calls: int = 20) -> float:
-    """Device milliseconds of one launch of the kernel whose name contains
-    ``name``, from torch.profiler over ``calls`` calls of ``fn``: the kernel
-    alone, without the wrapper's host work that CUDA events around a call
-    also see.  NaN when the trace holds no device time (not measured)."""
+def jointsmap_pairs(uv, z, height: int, width: int) -> tuple[int, int, int]:
+    """K3's (pixel, bone) pairs on these inputs: all of them, those whose
+    pixel its bone's rectangle does not rule out (what the inputs need), and
+    those the kernel's warp tiles run (not culled)."""
+    import torch
+
+    from mmhand_torch.ops.jointsmap import (
+        CULL_TILE,
+        HAND_BONES,
+        bone_params,
+        culled_tiles,
+        outside_rectangle,
+    )
+
+    params = tuple(p[..., None, None] for p in bone_params(uv, z))
+    rows = torch.arange(height, dtype=torch.float32)[:, None]
+    cols = torch.arange(width, dtype=torch.float32)
+    near = ~outside_rectangle(params, cols, rows, 0.0, 0.0)
+    th, tw = CULL_TILE
+    live = ~culled_tiles(uv, z, height, width)
+    run = live.repeat_interleave(th, -2).repeat_interleave(tw, -1)
+    return (uv.shape[0] * len(HAND_BONES) * height * width, int(near.sum()),
+            int(run[..., :height, :width].sum()))
+
+
+def kernel_device_ms(fn, names: tuple[str, ...], calls: int = 20) -> float:
+    """Device milliseconds of one call of ``fn`` spent in the kernels whose
+    names contain one of ``names``, from torch.profiler over ``calls``
+    calls: the kernels alone, without the wrapper's host work that CUDA
+    events around a call also see.  NaN when the trace holds no device time
+    (not measured)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -760,25 +979,36 @@ def kernel_device_ms(fn, name: str, calls: int = 20) -> float:
             fn()
         torch.cuda.synchronize()
     us = sum(getattr(ev, "self_device_time_total", 0.0)
-             for ev in prof.key_averages() if name in ev.key)
+             for ev in prof.key_averages()
+             if any(name in ev.key for name in names))
     return us / 1e3 / calls if us else float("nan")
 
 
 def jointsmap_kernel_phase():
     """K3 against generate_jointsmap_ref run on the CPU, bit for bit (the
     plain version on the card multiplies by 1/5 where K3 and the CPU divide
-    by 5); returns its record, at the baselines' batch."""
+    by 5), on poses, edge and degenerate cases and the baselines' poses;
+    returns its record, at the baselines' batch."""
+    import numpy as np
     import torch
 
-    from mmhand_torch.ops.jointsmap import (
-        HAND_BONES,
-        generate_jointsmap,
-        generate_jointsmap_ref,
-    )
+    from mmhand_torch.config import Config, DataConfig, ModelConfig
+    from mmhand_torch.ops.jointsmap import generate_jointsmap, generate_jointsmap_ref
 
+    size, nb = FULL["size"], EVAL["baseline_batch"]
+    cfg = Config(model=ModelConfig(fine_size=size),
+                 data=DataConfig(dataset="synthetic"), is_train=False)
+    raw = raw_batch(cfg, nb)
+    # bench_baselines.jointsmap_condition's inputs
+    main = (torch.from_numpy(raw["tgt_uv"]),
+            torch.from_numpy((np.asarray(raw["tgt_z"]) / 700.0 * 255.0
+                              ).astype(np.float32)))
     record = {}
-    for name, batch, height, width in K3_SHAPES:
-        uv, z = jointsmap_case(name, batch, height, width)
+    for name, batch, height, width in [("main path", nb, size, size)] + K3_SHAPES:
+        if name == "main path":
+            uv, z = main
+        else:
+            uv, z = jointsmap_case(name, batch, height, width)
         uv_d, z_d = uv.cuda(), z.cuda()
         got = generate_jointsmap(uv_d, z_d, height, width)
         torch.cuda.synchronize()
@@ -790,30 +1020,43 @@ def jointsmap_kernel_phase():
                           f"from the plain version on the CPU by {err}")
         on_card = generate_jointsmap_ref(uv_d, z_d, height, width).cpu()
         flipped = int((on_card != want).sum())
+        pairs, near, run = jointsmap_pairs(uv, z, height, width)
         line = (f"K3 generate_jointsmap {name} ({batch}, {height}, {width}): "
                 f"max_abs_err 0.0 against the CPU; the plain version on the "
-                f"card differs at {flipped} pixels")
-        if name == "poses" and height == 256:
+                f"card differs at {flipped} pixels; pairs {pairs}, not ruled "
+                f"out pixel by pixel {near}, run by the warp tiles {run} "
+                f"(skipped {1 - run / pairs:.4f})")
+        if name in ("main path", "poses") and height == size and batch == nb:
             ms = cuda_ms(lambda: generate_jointsmap(uv_d, z_d, height, width))
             device_ms = kernel_device_ms(
                 lambda: generate_jointsmap(uv_d, z_d, height, width),
-                "jointsmap_kernel")
+                K3_KERNELS)
             plain_ms = cuda_ms(
                 lambda: generate_jointsmap_ref(uv_d, z_d, height, width))
-            pixels = got.numel()
-            k3_bound, k3_by = bound(
-                pixels * 4 + uv.numel() * 4 + z.numel() * 4,
-                K3_OPS_PER_PIXEL_BONE * len(HAND_BONES) * pixels)
+            io_bytes = got.numel() * 4 + uv.numel() * 4 + z.numel() * 4
+            # the exact test's 16 f32 operations, for the pairs whose pixel
+            # the bone's rectangle does not rule out; beside it, all pairs
+            k3_bound, k3_by = bound(io_bytes, K3_OPS_PER_PIXEL_BONE * near)
+            all_bound, _ = bound(io_bytes, K3_OPS_PER_PIXEL_BONE * pairs)
+            wrapper_us = host_us(
+                lambda: generate_jointsmap(uv_d[:1], z_d[:1], 8, 8))
             line += (f"; kernel {ms:.4f} ms per call ({device_ms:.4f} ms of "
-                     f"device time, profiler), plain {plain_ms:.4f} ms, bound "
-                     f"{k3_bound:.4f} ms ({k3_by}); no single PyTorch call "
-                     f"computes the same function")
-            if not record:
+                     f"device time, profiler; the wrapper's host work "
+                     f"{wrapper_us:.1f} us per call at (1, 8, 8)), plain "
+                     f"{plain_ms:.4f} ms, bound "
+                     f"{k3_bound:.4f} ms ({k3_by}; {all_bound:.4f} ms for all "
+                     f"pairs); no single PyTorch call computes the same "
+                     f"function")
+            if name == "main path":
+                skipped_share = 1 - run / pairs
+            else:
                 record = {"name": "generate_jointsmap", "route": "cuda",
                           "source": "mmhand_torch/csrc/jointsmap.cu",
                           "replaces": K3_REPLACES, "max_abs_err": err,
-                          "ms": ms, "plain_ms": plain_ms, "bound_ms": k3_bound,
-                          "bound_by": k3_by, "library_ms": None}
+                          "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": k3_bound, "bound_by": k3_by,
+                          "library_ms": None, "device_ms": device_ms,
+                          "skipped_share": skipped_share}
         print(line)
     return record
 
@@ -1028,7 +1271,7 @@ def eval_slice_phase(tmp: Path) -> dict:
         evaluator.feed(out, gt[:nb], xyz)
 
     print(profile_step(one_baseline_batch, "unet baseline batch of 8",
-                       {"K3": "jointsmap_kernel"}))
+                       {"K3": K3_KERNELS})[0])
     return total
 
 
@@ -1081,7 +1324,8 @@ def main() -> int:
           f"{k3['launches']} in the evaluation slice")
 
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err",
-             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "device_ms", "skipped_share"]
     print(json.dumps({"kernels": [{k: rec[k] for k in order}
                                   for rec in (k1, k2, k2b, k3)]}))
     print(card)

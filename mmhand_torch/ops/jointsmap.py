@@ -13,7 +13,9 @@ the plain version ``generate_jointsmap_ref``, a CUDA tensor to the
 hand-written kernel in ``csrc/jointsmap.cu``, built at first use by
 ``ops._build``.  Both keep mmhand_tpu's operation order, one rounding per
 operation, so they agree bit for bit with ``generate_jointsmap`` and
-``generate_jointsmap_pallas`` there.
+``generate_jointsmap_pallas`` there.  The kernel skips, for each tile of
+pixels, the bones that certainly miss it (``culled_tiles``), which leaves
+the output as it was.
 """
 
 from __future__ import annotations
@@ -44,6 +46,13 @@ BONE_COLORS = (
 )
 BONE_RADIUS = 5.0  # reference generic_dataset.py:70
 _BIG = 3.0e38      # initial depth of every pixel
+# Margins of the kernel's cull: relative, and absolute in pixels.  They
+# cover the roundings of the inside test, which are ~1e-7 relative.
+CULL_REL = 1e-3
+CULL_PAD = 1.0
+# (rows, cols) of the pixel tiles, from (0, 0), for which one warp of the
+# kernel culls bones together (kTileRows, kTileCols in csrc/jointsmap.cu).
+CULL_TILE = (8, 16)
 
 
 def bone_params(uv: torch.Tensor, depth: torch.Tensor):
@@ -68,6 +77,44 @@ def bone_params(uv: torch.Tensor, depth: torch.Tensor):
                              torch.tensor(1e-3, device=uv.device))
     avg_d = (depth[..., a_idx] + depth[..., b_idx]) / 2.0
     return mx, my, cos, sin, half_len, avg_d
+
+
+def outside_rectangle(params, cx, cy, hx: float, hy: float) -> torch.Tensor:
+    """Where no pixel centre of the box about (cx, cy) with half extents
+    (hx, hy) can pass the inside test of the bones ``params`` (from
+    ``bone_params``), in float32 as the kernel decides it.
+
+    Inside needs |u| <= half_len and |v| <= BONE_RADIUS.  u and v are affine
+    in the pixel, so over the box they stay within hx |cos| + hy |sin| (u)
+    and hx |sin| + hy |cos| (v) of their value at its centre.  The rectangle
+    is widened by CULL_REL and CULL_PAD for the roundings of the test.
+    Nothing assumes (cos, sin) is a unit vector (below length 1e-6 it is
+    not), cos = sin = 0 gives u = v = 0, never outside, and a NaN is never
+    outside.
+    """
+    mx, my, cos, sin, half_len, _ = params
+    ux, uy = cx - mx, cy - my
+    ac, as_ = cos.abs(), sin.abs()
+    slack = CULL_REL * (half_len + BONE_RADIUS + (ux.abs() + hx) * ac
+                        + (uy.abs() + hy) * as_) + CULL_PAD
+    return (((ux * cos + uy * sin).abs()
+             > half_len + hx * ac + hy * as_ + slack)
+            | ((uy * cos - ux * sin).abs()
+               > BONE_RADIUS + hx * as_ + hy * ac + slack))
+
+
+def culled_tiles(uv: torch.Tensor, depth: torch.Tensor, height: int,
+                 width: int) -> torch.Tensor:
+    """(..., 20, tiles_y, tiles_x) bool: the (bone, tile) pairs the kernel
+    skips, the ``CULL_TILE`` tiles whose pixels the bone's
+    ``outside_rectangle`` rules out."""
+    params = tuple(p[..., None, None] for p in bone_params(uv, depth))
+    th, tw = CULL_TILE
+    hx, hy = 0.5 * (tw - 1), 0.5 * (th - 1)
+    cy = torch.arange(0, height, th, dtype=torch.float32,
+                      device=uv.device)[:, None] + hy
+    cx = torch.arange(0, width, tw, dtype=torch.float32, device=uv.device) + hx
+    return outside_rectangle(params, cx, cy, hx, hy)
 
 
 def generate_jointsmap_ref(uv: torch.Tensor, depth: torch.Tensor,
@@ -102,7 +149,8 @@ def _kernel():
 
     fn = load_library().mmhand_jointsmap
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -133,7 +181,7 @@ def _generate_jointsmap_cuda(uv: torch.Tensor, depth: torch.Tensor,
     with torch.cuda.device(uv.device):
         stream = torch.cuda.current_stream(uv.device).cuda_stream
         err = _kernel()(uv.data_ptr(), depth.data_ptr(), out.data_ptr(),
-                        batch, height, width, stream)
+                        batch, height, width, CULL_REL, CULL_PAD, stream)
     if err != 0:
         raise RuntimeError(f"jointsmap kernel launch failed: cudaError {err}")
     generate_jointsmap.launches += 1

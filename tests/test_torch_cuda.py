@@ -31,6 +31,8 @@ from mmhand_torch.ops.heatmap import (
     CLIP_LO,
     gaussian_heatmaps,
     gaussian_heatmaps_ref,
+    skip_d2,
+    skipped_elements,
 )
 from mmhand_torch.ops.jointsmap import generate_jointsmap, generate_jointsmap_ref
 from mmhand_torch.train.state import build_system
@@ -76,6 +78,59 @@ def test_heatmap_kernel_matches_plain(cuda, batch, height, width):
                                rtol=0, atol=1e-6)
 
 
+# keypoints for K1's early-out (tests/test_torch_ops.py runs them on the CPU)
+HEAT_SKIP_CASES = ["inside", "edges", "off_frame", "near_threshold"]
+
+
+def _heatmap_skip_case(case, sigma, batch, height, width, seed=11):
+    """(batch, 21, 2) keypoints: fractional ones inside the frame, on its
+    edges and corners, off it, or placed so that pixel (30, 10) lies at d^2
+    within a few ulps of the early-out threshold, on either side."""
+    rng = np.random.RandomState(seed)
+    size = np.array([width - 1, height - 1], np.float32)
+    uv = rng.uniform(0, 1, (batch, 21, 2)) * size
+    if case == "edges":
+        side = rng.randint(0, 2, (batch, 21))  # the coordinate on an edge
+        edge = rng.randint(0, 2, (batch, 21)) * size[side]
+        np.put_along_axis(uv, side[..., None], edge[..., None], -1)
+        uv[:, :4] = [[0, 0], [width - 1, 0], [0, height - 1], size]
+        uv[:, 4:8] += rng.choice([-0.5, 0.5], (batch, 4, 2))
+    elif case == "off_frame":
+        far = rng.uniform(0.5, 40, (batch, 21))
+        uv[:, :7, 0] = -far[:, :7]
+        uv[:, 7:14, 0] = width - 1 + far[:, 7:14]
+        uv[:, 14:, 1] = rng.choice([-1, 1], (batch, 7)) * (height + far[:, 14:])
+    elif case == "near_threshold":
+        t = np.float64(np.float32(skip_d2(sigma)))
+        dy = np.arange(21) % int(np.sqrt(t))
+        eps = rng.choice([-3e-7, -1e-7, 0.0, 1e-7, 3e-7], (batch, 21))
+        uv = np.stack(np.broadcast_arrays(
+            30.0 - np.sqrt(t * (1 + eps) - dy * dy), 10.0 - dy), -1)
+    return torch.from_numpy(np.asarray(uv, np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", HEAT_SKIP_CASES)
+@pytest.mark.parametrize("sigma", [5.0, 6.0])
+@pytest.mark.parametrize("batch,height,width", [(16, 256, 256), (3, 70, 90)])
+def test_heatmap_kernel_early_out(cuda, case, sigma, batch, height, width):
+    """The early-out's hard cases: the kernel within 1e-6 of the plain
+    version off the clip boundary, and 0 wherever it skipped, as the plain
+    version is; (3, 70, 90) rows are not 16-byte multiples."""
+    uv = _heatmap_skip_case(case, sigma, batch, height, width).to(cuda)
+    got = gaussian_heatmaps(uv, height, width, sigma)
+    torch.cuda.synchronize()
+    want = gaussian_heatmaps_ref(uv.cpu(), height, width, sigma)
+    skipped = skipped_elements(uv.cpu(), height, width, sigma)
+    assert not bool(want[skipped].any())
+    assert not bool(got.cpu()[skipped].any())
+    keep = _off_clip_boundary(uv.cpu().numpy(), height, width, sigma)
+    assert keep.mean() > 1 - 1e-3
+    np.testing.assert_allclose(np.where(keep, got.cpu().numpy(), 0),
+                               np.where(keep, want.numpy(), 0),
+                               rtol=0, atol=1e-6)
+
+
 @pytest.mark.cuda
 def test_heatmap_kernel_checks_its_input(cuda):
     uv = torch.zeros(2, 21, 2, device=cuda)
@@ -85,6 +140,8 @@ def test_heatmap_kernel_checks_its_input(cuda):
         gaussian_heatmaps(torch.zeros(2, 21, 3, device=cuda))
     with pytest.raises(ValueError):
         gaussian_heatmaps(uv.transpose(0, 1))
+    with pytest.raises(ValueError, match="keypoints"):
+        gaussian_heatmaps(torch.zeros(1, 6145, 2, device=cuda), 4, 4)
 
 
 @pytest.mark.cuda
@@ -202,7 +259,11 @@ def test_toy_train_step_on_card_matches_cpu(cuda):
 def _jointsmap_case(name, batch, height, width, seed=0):
     """Hand-sized poses, plus the edge cases of tests/test_torch_jointsmap.py:
     crossing bones (occlusion), equal depths (ties), zero-length bones and
-    joints parked off the frame."""
+    joints parked off the frame (and coincident there); then the cull's
+    degenerate cases: bones of length 1e-7 and 5e-7, where (cos, sin) is not
+    a unit vector (tiny), half_len at its 1e-3 floor (floor), NaN keypoints
+    and depths (nan), long bones crossing the frame (long), and ellipses
+    whose tips and sides touch the warp tiles' edges (graze)."""
     rng = np.random.RandomState(seed)
     scale = np.array([width, height], np.float32)
     uv = ((rng.uniform(0.3, 0.7, (batch, 1, 2))
@@ -221,6 +282,30 @@ def _jointsmap_case(name, batch, height, width, seed=0):
         uv[:, 18] = uv[:, 19] = uv[:, 20] = uv[:, 17]
     elif name == "parked":
         uv[:, 5:] = [-1000.0, 4000.0]
+    elif name == "tiny":            # bones 8 (1, 2) and 11 (5, 6)
+        uv[:, 1], uv[:, 2] = [1e-7, 0.0], [0.0, 0.0]
+        uv[:, 5], uv[:, 6] = [2e-7, 3e-7], [5e-7, -1e-7]
+        z[:, [1, 2, 5, 6]] = 50.0
+    elif name == "floor":           # bones 14 (9, 10) and 18 (14, 15)
+        uv[:, 9] = [width / 2, height / 2]
+        uv[:, 10] = uv[:, 9] + [1e-3, 0.0]
+        uv[:, 14] = [width / 4 + 0.5, height / 4]
+        uv[:, 15] = uv[:, 14] + [0.0, 2e-3]
+        z[:, [9, 10, 14, 15]] = 10.0
+    elif name == "nan":
+        uv[:, 3] = np.nan
+        uv[:, 7, 0] = np.nan
+        z[:, 12] = np.nan
+    elif name == "long":            # bones 5 (17, 18) and 17 (13, 14)
+        uv[:, 17], uv[:, 18] = [-3000.0, 0.2 * height], [3000.0, 0.85 * height]
+        uv[:, 13], uv[:, 14] = [0.5 * width, -4000.0], [0.4 * width, 4000.0]
+        z[:, [13, 14, 17, 18]] = 20.0
+    elif name == "graze":           # tiles of 16 x 8 pixels from (0, 0)
+        uv[:, 1], uv[:, 2] = [16.0, 40.0], [32.0, 40.0]    # tip at col 32
+        uv[:, 5], uv[:, 6] = [70.0, 24.0], [70.0, 48.0]    # tip at row 48
+        uv[:, 9], uv[:, 10] = [100.0, 35.0], [120.0, 35.0]  # side on row 40
+        uv[:, 13], uv[:, 14] = [44.0, 60.0], [60.0, 76.0]  # diagonal
+        z[:, [1, 2, 5, 6, 9, 10, 13, 14]] = 30.0
     return torch.from_numpy(uv), torch.from_numpy(z)
 
 
@@ -228,7 +313,9 @@ def _jointsmap_case(name, batch, height, width, seed=0):
 @pytest.mark.parametrize("name,batch,height,width", [
     ("poses", 16, 256, 256), ("poses", 8, 256, 256), ("poses", 3, 70, 90),
     ("occlusion", 2, 256, 256), ("tie", 2, 256, 256),
-    ("zero_length", 2, 256, 256), ("parked", 2, 256, 256)])
+    ("zero_length", 2, 256, 256), ("parked", 2, 256, 256),
+    ("tiny", 2, 256, 256), ("floor", 2, 256, 256), ("nan", 2, 256, 256),
+    ("long", 2, 256, 256), ("graze", 2, 256, 256), ("graze", 3, 70, 90)])
 def test_jointsmap_kernel_equals_cpu_plain(cuda, name, batch, height, width):
     """K3 against its plain version run on the CPU: bit for bit (one IEEE
     rounding per operation on both).  The plain version run on the card is

@@ -14,6 +14,7 @@ from mmhand_torch.eval.evaluator import Evaluator as TorchEvaluator
 from mmhand_torch.ops import jointsmap as tjm
 from mmhand_tpu.eval import Evaluator as JaxEvaluator
 from mmhand_tpu.ops import jointsmap as jjm
+from test_torch_cuda import _jointsmap_case
 
 
 def _poses(batch, height, width, seed=0):
@@ -129,6 +130,59 @@ def test_bone_params_match():
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     assert tjm.HAND_BONES == jjm.HAND_BONES
     assert tjm.BONE_COLORS == jjm.BONE_COLORS
+
+
+def _inside(uv, z, height, width):
+    """(B, 20, H, W) bool: the plain version's inside test, bone by bone,
+    with its float32 operations."""
+    params = tjm.bone_params(uv, z)
+    rows = torch.arange(height, dtype=torch.float32)[:, None]
+    cols = torch.arange(width, dtype=torch.float32)
+    mx, my, cos, sin, half_len, _ = (p[..., None, None] for p in params)
+    dx = cols - mx
+    dy = rows - my
+    u = dx * cos + dy * sin
+    v = -dx * sin + dy * cos
+    uh = u / half_len
+    vr = v / tjm.BONE_RADIUS
+    return uh * uh + vr * vr <= 1.0
+
+
+# random bones, then the cull's degenerate cases (tests/test_torch_cuda.py)
+CULL_CASES = ["random", "zero_length", "tiny", "floor", "parked", "nan",
+              "long", "graze"]
+
+
+@pytest.mark.parametrize("case", CULL_CASES)
+def test_cull_rectangle_holds_every_inside_pixel(case):
+    """No pixel that the plain version's inside test marks inside is one its
+    bone's rectangle rules out, even as a box of one pixel, nor lies in a
+    tile the kernel culls for that bone; the cull skips most pairs where the
+    bones are not degenerate."""
+    height, width = 96, 80
+    if case == "random":
+        rng = np.random.RandomState(12)
+        uv = torch.from_numpy(rng.uniform(-40, 120, (6, 21, 2)).astype(np.float32))
+        z = torch.from_numpy(rng.uniform(50, 250, (6, 21)).astype(np.float32))
+    else:
+        uv, z = _jointsmap_case(case, 2, height, width, seed=13)
+    inside = _inside(uv, z, height, width)
+    assert bool(inside.any())
+    params = tuple(p[..., None, None] for p in tjm.bone_params(uv, z))
+    rows = torch.arange(height, dtype=torch.float32)[:, None]
+    cols = torch.arange(width, dtype=torch.float32)
+    assert not bool((inside & tjm.outside_rectangle(params, cols, rows, 0.0,
+                                                    0.0)).any())
+    culled = tjm.culled_tiles(uv, z, height, width)
+    th, tw = tjm.CULL_TILE
+    per_pixel = culled.repeat_interleave(th, -2).repeat_interleave(tw, -1)
+    assert not bool((inside & per_pixel[..., :height, :width]).any())
+    if case in ("random", "graze", "floor"):
+        assert float(culled.float().mean()) > 0.5
+    if case == "zero_length":   # cos = sin = 0: the whole frame is inside
+        assert not bool(culled[:, 8].any()) and bool(inside[:, 8].all())
+    if case == "tiny":          # (cos, sin) = (0.1, 0): inside ~50 px deep
+        assert bool(inside[:, 8, 45:51, 0].all())
 
 
 def test_dispatch_counts_no_cpu_launch():

@@ -5,12 +5,15 @@ CPU.  The JAX Pallas heatmap kernel runs in interpret mode, as
 tests/test_ops.py runs it.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
 
 from mmhand_torch.data.loader import make_prepare_batch
 from mmhand_torch.ops import depth as tdepth
+from mmhand_torch.ops import heatmap
 from mmhand_torch.ops import image as timage
 from mmhand_torch.ops.heatmap import (
     CLIP_LO,
@@ -19,6 +22,7 @@ from mmhand_torch.ops.heatmap import (
 )
 from mmhand_tpu import ops as jops
 from mmhand_tpu.data.loader import make_prepare_batch as jax_prepare_batch
+from test_torch_cuda import HEAT_SKIP_CASES, _heatmap_skip_case
 
 # Heatmaps: atol 1e-5, as tests/test_ops.py holds the Pallas kernel against
 # the XLA version.  Pixels whose unclipped Gaussian lies within 1e-6 of the
@@ -92,6 +96,39 @@ def test_heatmaps_ragged_and_off_frame():
     want = np.asarray(jops.gaussian_heatmaps(uv, 70, 90, 6.0))
     got = gaussian_heatmaps_ref(torch.from_numpy(uv), 70, 90, 6.0).numpy()
     assert_heatmaps_close(got, want, uv, 70, 90)
+
+
+@pytest.mark.parametrize("case", HEAT_SKIP_CASES)
+@pytest.mark.parametrize("sigma", [5.0, 6.0])
+def test_heatmap_early_out_skips_only_zeros(case, sigma):
+    """Every element whose d^2 reaches the kernel's threshold (from the
+    wrapper's own helper) is exactly 0 in the plain version, and in the XLA
+    version: the early-out cannot change an output."""
+    height, width = 48, 64
+    uv = _heatmap_skip_case(case, sigma, 3, height, width)
+    skipped = heatmap.skipped_elements(uv, height, width, sigma)
+    want = gaussian_heatmaps_ref(uv, height, width, sigma)
+    assert skipped.shape == want.shape
+    assert not bool(want[skipped].any())
+    xla = np.asarray(jops.gaussian_heatmaps(uv.numpy(), height, width, sigma))
+    assert not xla[skipped.numpy()].any()
+    # most elements are skipped, and the threshold is tight: the clip also
+    # zeroes some elements it leaves to exp
+    assert float(skipped.float().mean()) > 0.5
+    assert bool(((want == 0) & ~skipped).any())
+    if case == "near_threshold":
+        x, y = uv[..., 0].double(), uv[..., 1].double()
+        d2 = (30.0 - x) ** 2 + (10.0 - y) ** 2
+        t = float(np.float32(heatmap.skip_d2(sigma)))
+        assert float((d2 / t - 1).abs().max()) < 1e-6
+
+
+def test_heatmap_skip_threshold():
+    """T = 2 sigma^2 (ln(1/0.0099) + 0.05): where d^2 >= T, exp is under
+    0.0095, ~4% below the clip."""
+    assert heatmap.skip_d2(6.0) == pytest.approx(335.9, abs=0.1)
+    for sigma in (1.0, 5.0, 6.0, 11.0):
+        assert math.exp(-heatmap.skip_d2(sigma) / (2 * sigma ** 2)) < 0.96 * CLIP_LO
 
 
 def test_heatmap_wrapper_dispatch():
