@@ -41,6 +41,26 @@
    finite over 64 images and that K3 ran once per baseline batch; times one
    batch's parts and profiles one baseline batch.
 
+Between the train and evaluation paths, the rest of the trainer:
+
+8. The fp16 slice: 6 flagship steps through ``train()`` with
+   ``PrecisionConfig(compute_dtype="float16", loss_scaling=True)``; checks
+   finite losses and parameters and 101 K2/K2b launches per step; prints the
+   rate, the overflow steps, the final scales and one step with and without
+   the scalers (K2/K2b also run in f16 at (16, 64, 256, 256) in phase 2).
+9. Resume: 3 flagship steps through ``scripts.train.main``, their
+   ``state_latest.pt`` saved and restored into a fresh system tensor for
+   tensor, 3 more with ``--continue_train`` up to step 6; then at toy size
+   3 + 3 resumed steps against 6 unbroken ones (f32, TF32 off,
+   deterministic algorithms), bit for bit wherever two unbroken runs agree,
+   else within the train tests' bound.
+10. Data parallelism at world size 1 over NCCL: ``torch.distributed.run``
+    launches this script as one rank (``--dp-worker``), which runs 3 flagship
+    steps through ``train(distributed=True)``; prints its step beside the
+    single-process step and its all-reduces per step.
+11. Two ranks on the one card over gloo (``--gloo-worker``): one toy DP step
+    against the single-process step on the full batch.
+
 Prints the kernels' JSON line, then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.  Any failed phase raises
 and the exit code is not 0; without a CUDA device, or without the package
@@ -73,14 +93,16 @@ K1_KERNELS = ("gaussian_heatmaps_kernel",)
 K2_KERNELS = ("bn_sums_partial_kernel", "bn_sums_finish_kernel")
 K2B_KERNELS = ("bn_sums_backward_kernel",)
 K3_KERNELS = ("jointsmap_kernel",)
-# the largest BatchNorm input of the train step, a PATBlock attention
-# stream's, and a ragged shape in f32
-BN_SHAPES = [((16, 64, 256, 256), "bfloat16"), ((16, 512, 64, 64), "bfloat16"),
-             ((3, 29, 37, 41), "float32")]
+# the largest BatchNorm input of the train step (in bf16, and in f16 for the
+# fp16 slice), a PATBlock attention stream's, and a ragged shape in f32
+BN_SHAPES = [((16, 64, 256, 256), "bfloat16"), ((16, 64, 256, 256), "float16"),
+             ((16, 512, 64, 64), "bfloat16"), ((3, 29, 37, 41), "float32")]
 # the train slice: the JAX Config() flagship (ngf 64, 9 PATBlocks, 256 px),
 # batch 16, a few steps; its BatchNorms: 47 in G, 9 in each D, run once in
 # G, twice in the G loss's D forwards and twice in each D phase
 TRAIN = dict(steps=6, batch=16)
+# the resume and NCCL slices: 3 flagship steps each (3 + 3 for resume)
+RESUME_STEPS = 3
 BN_PER_STEP = 47 + 2 * 9 + 2 * 9 + 2 * 9
 # the evaluation slice: 64 pairs at 256 px; evaluate_gan at batch 16, the
 # baselines at batch 8 (the JAX scripts' defaults)
@@ -755,10 +777,10 @@ def bn_step_bounds(step, batch, lr, sums: dict) -> str:
     return line
 
 
-def train_slice_phase(tmp: Path) -> dict:
+def train_slice_phase(tmp: Path) -> tuple[dict, float]:
     """The full-width train step through scripts.train.main, then its
     checkpoint through aug.main; returns the kernels' launches in the train
-    run."""
+    run and one step's milliseconds by CUDA events."""
     import math
     import warnings
 
@@ -879,7 +901,469 @@ def train_slice_phase(tmp: Path) -> dict:
                         "--checkpoints_dir", str(ckpt), "--name", "train_smoke",
                         "--dst", str(tmp / "train_fakes"), "--device", "cuda"])
     check(written == batch_size, f"aug wrote {written} fakes from the trained G")
+    return launches, times["whole step"]
+
+
+def kernel_counters() -> dict:
+    """The port's kernel wrappers, each with its ``.launches`` count."""
+    from mmhand_torch.ops.bn_stats import bn_sums, bn_sums_backward
+    from mmhand_torch.ops.heatmap import gaussian_heatmaps
+    from mmhand_torch.ops.jointsmap import generate_jointsmap
+
+    return {"gaussian_heatmaps": gaussian_heatmaps, "bn_sums": bn_sums,
+            "bn_sums_backward": bn_sums_backward,
+            "generate_jointsmap": generate_jointsmap}
+
+
+def flagship_config(ckpt: Path, name: str, **precision):
+    """The JAX Config() flagship at batch 16 on the synthetic set, printing
+    every step."""
+    from mmhand_torch.config import (
+        Config,
+        DataConfig,
+        ModelConfig,
+        PrecisionConfig,
+        RunConfig,
+    )
+
+    return Config(model=ModelConfig(fine_size=FULL["size"]),
+                  data=DataConfig(dataset="synthetic",
+                                  batch_size=TRAIN["batch"]),
+                  precision=PrecisionConfig(**precision),
+                  run=RunConfig(checkpoints_dir=str(ckpt), name=name,
+                                print_freq=1))
+
+
+def nets_finite(system) -> bool:
+    import torch
+
+    return all(bool(torch.isfinite(v.float()).all())
+               for net in (system.generator, system.d_pb, system.d_pp)
+               for k, v in net.state_dict().items()
+               if not k.endswith("num_batches_tracked"))
+
+
+def fp16_train_phase(tmp: Path) -> dict:
+    """Six flagship steps through ``train()`` in float16 with the three
+    dynamic loss scalers; returns the kernels' launches in that run."""
+    import math
+    import warnings
+
+    import torch
+
+    from mmhand_torch.data import make_prepare_batch
+    from mmhand_torch.train.loop import train
+    from mmhand_torch.train.step import make_train_step
+
+    steps = TRAIN["steps"]
+    cfg = flagship_config(tmp / "fp16_ckpt", "fp16", compute_dtype="float16",
+                          loss_scaling=True)
+    counters = kernel_counters()
+    out = io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    for f in counters.values():
+        f.launches = 0
+    with warnings.catch_warnings(), contextlib.redirect_stdout(out):
+        warnings.simplefilter("ignore")  # the random-VGG warning
+        result = train(cfg, device="cuda", max_steps=steps)
+    launches = {k: f.launches for k, f in counters.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    system = result.system
+    check(result.steps == steps and system.step == steps,
+          f"fp16: {result.steps} steps taken")
+    check(launches["bn_sums"] == BN_PER_STEP * steps
+          and launches["bn_sums_backward"] == BN_PER_STEP * steps
+          and launches["gaussian_heatmaps"] == 2 * steps,
+          f"fp16 launches {launches}")
+    lines = re.findall(r"\(epoch: \d+, iters: \d+, time: [^)]*\) (.*)",
+                       out.getvalue())
+    check(len(lines) == steps, f"fp16: {len(lines)} loss lines")
+    overflows = 0
+    for rest in lines:
+        values = {k: float(v) for k, v in re.findall(r"(\w+): (\S+)", rest)}
+        check(all(math.isfinite(v) for v in values.values())
+              and "amp_overflow" in values, f"fp16 losses {values}")
+        overflows += int(values["amp_overflow"])
+    check(nets_finite(system), "fp16: a parameter or statistic is not finite")
+    scales = {k: float(v.scale) for k, v in system.scales.items()}
+    check(all(1.0 <= v <= 2.0 ** 16 for v in scales.values()),
+          f"fp16 scales {scales}")
+
+    # what the scaled path costs: the same fp16 step with the scalers off
+    # (one flat gradient buffer per net, unscale, and one host sync per
+    # phase), CUDA events, median of 5
+    batch = make_prepare_batch(cfg.data.sigma, "cuda")(
+        raw_batch(cfg, TRAIN["batch"]))
+    step = make_train_step(system)
+    lr = cfg.optim.lr
+    scaled_ms = cuda_ms(lambda: step(batch, lr), iters=5, warmup=1)
+    kept = system.scales
+    system.scales = None
+    try:
+        plain_ms = cuda_ms(lambda: step(batch, lr), iters=5, warmup=1)
+    finally:
+        system.scales = kept
+    rate = result.images_per_sec
+    print(f"fp16 train slice: {steps} steps at batch {TRAIN['batch']}, "
+          f"{rate} images/s after the first step "
+          f"({TRAIN['batch'] / rate * 1e3:.3f} ms per step), overflow steps "
+          f"{overflows}, final scales {scales}, peak device memory "
+          f"{peak_gib:.2f} GiB, launches {launches}; one step by CUDA events "
+          f"{scaled_ms:.3f} ms scaled, {plain_ms:.3f} ms with the scalers off")
     return launches
+
+
+def same_state(got: dict, want: dict, where: str = "") -> int:
+    """Every tensor of two state_dict trees equal, bit for bit; returns the
+    count of tensors compared."""
+    import torch
+
+    check(type(got) is type(want), f"{where}: {type(got)} vs {type(want)}")
+    if isinstance(want, dict):
+        check(set(got) == set(want), f"{where}: keys differ")
+        return sum(same_state(got[k], want[k], f"{where}.{k}") for k in want)
+    if isinstance(want, torch.Tensor):
+        check(got.shape == want.shape and got.dtype == want.dtype
+              and torch.equal(got.cpu(), want.cpu()), f"{where} differs")
+        return 1
+    check(got == want, f"{where}: {got} vs {want}")
+    return 0
+
+
+def resume_phase(tmp: Path) -> dict:
+    """Three flagship steps through scripts.train.main, a restore of the
+    checkpoint they saved into a fresh system, three more through main with
+    --continue_train; then the toy 3 + 3 resumed run against the 6-step run
+    on the card.  Returns the kernels' launches in the two main runs."""
+    import math
+    import warnings
+
+    import torch
+
+    from mmhand_torch.scripts import train as train_script
+    from mmhand_torch.train.state import build_system
+    from mmhand_torch.utils.checkpoint import CheckpointManager
+
+    ckpt_dir = tmp / "resume_ckpt"
+    argv = ["--dataset", "synthetic", "--batchSize", str(TRAIN["batch"]),
+            "--fineSize", str(FULL["size"]), "--max_steps", str(RESUME_STEPS),
+            "--print_freq", "1", "--checkpoints_dir", str(ckpt_dir),
+            "--name", "resume", "--device", "cuda"]
+    first, out1, _, launches = _run_main(train_script.main, argv)
+    cfg = first.system.config
+    ckpt = CheckpointManager(str(ckpt_dir), "resume")
+    path = Path(ckpt.path("latest"))
+    check(path.exists() and first.system.step == RESUME_STEPS,
+          "the first run saved no state_latest.pt")
+    nbytes = path.stat().st_size
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    live = first.system.state_dict()
+    own = live.pop("rank")
+    same_state({k: saved[k] for k in live}, live, "saved")
+    same_state({k: v[0] for k, v in saved["rank"].items()}, own, "saved rank")
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    ckpt.save(first.system, "probe")
+    save_s = time.perf_counter() - start
+    del first, live, own
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        fresh = build_system(cfg, "cuda")
+    start = time.perf_counter()
+    ckpt.restore(fresh, "latest")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - start
+    got = fresh.state_dict()
+    got["rank"] = {k: v[None] for k, v in got["rank"].items()}
+    n_tensors = same_state(got, {k: v for k, v in saved.items()
+                                 if k != "world"}, "restored")
+    del fresh, got, saved
+
+    second, out2, _, more = _run_main(
+        train_script.main, argv + ["--continue_train"])
+    check(second.steps == RESUME_STEPS
+          and second.system.step == 2 * RESUME_STEPS,
+          f"resumed run: {second.steps} steps, step {second.system.step}")
+    check(all(math.isfinite(v) for v in second.last_metrics.values()),
+          f"resumed metrics {second.last_metrics}")
+    del second
+    for k, v in more.items():
+        launches[k] += v
+    print(f"resume: state_latest.pt {nbytes} bytes, {n_tensors} tensors "
+          f"restored bit for bit; save {save_s:.3f} s, restore {restore_s:.3f} "
+          f"s; the resumed run reached step {2 * RESUME_STEPS}; launches "
+          f"{launches}")
+    toy_resume_check(tmp)
+    return launches
+
+
+def toy_config(pool_size: int, dropout: bool = True,
+               padding: str = "reflect"):
+    from mmhand_torch.config import (
+        Config,
+        DataConfig,
+        ModelConfig,
+        OptimConfig,
+        PrecisionConfig,
+    )
+
+    return Config(model=ModelConfig(fine_size=32, ngf=8, ndf=8, g_n_blocks=2,
+                                    n_layers_d=2, use_dropout_g=dropout,
+                                    use_dropout_d=dropout,
+                                    padding_type=padding),
+                  optim=OptimConfig(pool_size=pool_size),
+                  data=DataConfig(dataset="synthetic", seed=SEED),
+                  precision=PrecisionConfig(compute_dtype="float32"))
+
+
+def toy_batches(n: int, batch: int, seed: int = SEED) -> list[dict]:
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    return [{k: torch.from_numpy(rng.uniform(-1, 1, (batch, 32, 32, c)
+                                             ).astype(np.float32)).cuda()
+             for k, c in (("H1", 3), ("P1", 21), ("D1", 3), ("H2", 3),
+                          ("P2", 21), ("D2", 3))} for _ in range(n)]
+
+
+def state_gap(a, b) -> tuple[bool, float]:
+    """(every leaf equal, max |a - b| over the floating-point tensors) of two
+    state trees of one structure."""
+    import torch
+
+    if isinstance(b, dict):
+        gaps = [state_gap(a[k], b[k]) for k in b]
+        return (all(g[0] for g in gaps), max([g[1] for g in gaps], default=0.0))
+    if isinstance(b, (list, tuple)):
+        gaps = [state_gap(x, y) for x, y in zip(a, b)]
+        return (all(g[0] for g in gaps), max([g[1] for g in gaps], default=0.0))
+    if isinstance(b, torch.Tensor):
+        equal = torch.equal(a.cpu(), b.cpu())
+        if b.is_floating_point() and b.numel():
+            return equal, float((a.cpu().double() - b.cpu().double()).abs().max())
+        return equal, 0.0
+    return a == b, 0.0
+
+
+def toy_resume_check(tmp: Path) -> None:
+    """Toy size on the card, f32 with TF32 off, deterministic cuDNN and
+    torch's deterministic algorithms (warn only), dropout and pools on: 3
+    steps, a save, a fresh system restored, 3 more steps (resumed), against
+    6 steps without a break, twice (unbroken).  The random streams and the
+    step must match exactly; the rest must match bit for bit wherever two
+    unbroken runs do, and else within nets_agree's bound.  Prints the ops
+    torch names as having no deterministic CUDA implementation (the reflect
+    pad's backward sums with atomics)."""
+    import warnings
+
+    import torch
+
+    from mmhand_torch.train.state import build_system
+    from mmhand_torch.train.step import make_train_step
+    from mmhand_torch.utils.checkpoint import CheckpointManager
+
+    batches = toy_batches(6, 2)
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for padding in ("zero", "reflect"):
+            cfg = toy_config(pool_size=4, padding=padding)
+            lr = cfg.optim.lr
+            ckpt = CheckpointManager(str(tmp / f"toy_{padding}"), "toy")
+            with tf32_off(), warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                runs = []
+                for _ in range(2):
+                    system = build_system(cfg, "cuda")
+                    step = make_train_step(system)
+                    runs.append(([step(b, lr) for b in batches], system))
+                system = build_system(cfg, "cuda")
+                step = make_train_step(system)
+                metrics = [step(b, lr) for b in batches[:3]]
+                ckpt.save(system, "latest")
+                system = build_system(cfg, "cuda")
+                ckpt.restore(system, "latest")
+                step = make_train_step(system)
+                metrics += [step(b, lr) for b in batches[3:]]
+            nondeterministic = sorted({
+                str(w.message).split(" does not have")[0] for w in caught
+                if "deterministic implementation" in str(w.message)})
+            (want, unbroken), (again, twice) = runs
+            rest = unbroken.state_dict()
+            got = system.state_dict()
+            check(got["step"] == rest["step"], "toy resume: step")
+            for key in ("rng_pool", "rng_cuda", "rng_cpu"):
+                check(torch.equal(got["rank"][key], rest["rank"][key]),
+                      f"toy resume {padding}: the {key} stream differs")
+            same, gap = state_gap((metrics, got), (want, rest))
+            same2, gap2 = state_gap((again, twice.state_dict()), (want, rest))
+            if same2:
+                check(same, f"toy resume {padding}: two unbroken runs agree bit "
+                            f"for bit, the resumed one differs by {gap}")
+            for m, w in zip(metrics, want):
+                for k, v in w.items():
+                    check(abs(float(m[k]) - float(v)) <= 2e-4 * (1 + abs(float(v))),
+                          f"toy resume {padding}: loss {k}")
+            summary = nets_agree(system, unbroken, 6, lr)
+            print(f"toy resume on the card ({padding} padding; f32, TF32 off, "
+                  f"deterministic algorithms, dropout, pool 4): resumed "
+                  f"against unbroken: bit for bit {same}, max |diff| {gap} "
+                  f"({summary}); unbroken against unbroken: bit for bit "
+                  f"{same2}, max |diff| {gap2}; ops without a deterministic "
+                  f"CUDA implementation: {nondeterministic}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+def dp_worker(out: str) -> None:
+    """One rank of a torchrun launch on the card (NCCL): 3 flagship steps
+    through ``train(distributed=True)``, then one step timed by CUDA events
+    and its all-reduces counted; rank 0 writes the JSON ``out``."""
+    import warnings
+
+    import torch.distributed as dist
+
+    from mmhand_torch.data import make_prepare_batch
+    from mmhand_torch.parallel import init_distributed
+    from mmhand_torch.parallel.sharding import collective_launches
+    from mmhand_torch.train.loop import train
+    from mmhand_torch.train.step import make_train_step
+
+    device = init_distributed("cuda")
+    try:
+        cfg = flagship_config(Path(out).parent / "nccl_ckpt", "nccl")
+        counters = kernel_counters()
+        for f in counters.values():
+            f.launches = 0
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            result = train(cfg, device=device, max_steps=RESUME_STEPS,
+                           distributed=True)
+        launches = {k: f.launches for k, f in counters.items()}
+        batch = make_prepare_batch(cfg.data.sigma, device)(
+            raw_batch(cfg, cfg.data.batch_size // dist.get_world_size()))
+        step = make_train_step(result.system)
+        lr = cfg.optim.lr
+        ms = cuda_ms(lambda: step(batch, lr), iters=5, warmup=1)
+        before = collective_launches()
+        step(batch, lr)
+        per_step = collective_launches() - before
+        if dist.get_rank() == 0:
+            Path(out).write_text(json.dumps({
+                "steps": result.steps, "metrics": result.last_metrics,
+                "images_per_sec": result.images_per_sec, "step_ms": ms,
+                "all_reduces_per_step": per_step, "launches": launches,
+                "world": dist.get_world_size(),
+                "finite": nets_finite(result.system)}))
+    finally:
+        dist.destroy_process_group()
+
+
+def nccl_phase(tmp: Path, single_step_ms: float) -> dict:
+    """The flagship DP path at world size 1 over NCCL, launched by
+    torch.distributed.run; returns its kernels' launches."""
+    import math
+
+    out = tmp / "nccl.json"
+    start = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", str(ROOT / "chip_smoke.py"), "--dp-worker",
+         str(out)], capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - start
+    check(proc.returncode == 0 and out.exists(),
+          f"torchrun worker failed ({proc.returncode}):\n{proc.stdout[-3000:]}"
+          f"\n{proc.stderr[-3000:]}")
+    r = json.loads(out.read_text())
+    launches = r["launches"]
+    check(r["steps"] == RESUME_STEPS and r["finite"]
+          and all(math.isfinite(v) for v in r["metrics"].values()),
+          f"NCCL world 1: {r}")
+    check(launches["bn_sums"] == BN_PER_STEP * RESUME_STEPS
+          and launches["bn_sums_backward"] == BN_PER_STEP * RESUME_STEPS,
+          f"NCCL world 1 launches {launches}")
+    print(f"NCCL world size 1 (torchrun, {seconds:.1f} s with start-up): "
+          f"{RESUME_STEPS} flagship steps, {r['images_per_sec']} images/s after "
+          f"the first; one step {r['step_ms']:.3f} ms by CUDA events against "
+          f"{single_step_ms:.3f} ms single-process; {r['all_reduces_per_step']} "
+          f"all-reduces per step; launches {launches}")
+    return launches
+
+
+def gloo_worker(out: str) -> None:
+    """One of two ranks on the one card over gloo: one toy DP step (f32,
+    TF32 off, dropout off, pool 0) on this rank's half of the batch; rank 0
+    saves the three nets and the metrics."""
+    import warnings
+
+    import torch
+    import torch.distributed as dist
+
+    from mmhand_torch.parallel import init_distributed
+    from mmhand_torch.train.state import build_system
+    from mmhand_torch.train.step import make_train_step
+
+    init_distributed("cpu")  # gloo, with the tensors on the card
+    try:
+        rank = dist.get_rank()
+        cfg = toy_config(pool_size=0, dropout=False)
+        counters = kernel_counters()
+        with tf32_off(), warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            system = build_system(cfg, "cuda", distributed=True)
+            for f in counters.values():
+                f.launches = 0
+            full = toy_batches(1, 4)[0]
+            metrics = make_train_step(system)(
+                {k: v[2 * rank:2 * rank + 2] for k, v in full.items()},
+                cfg.optim.lr)
+        if rank == 0:
+            torch.save({"nets": {n: getattr(system, n).state_dict()
+                                 for n in ("generator", "d_pb", "d_pp")},
+                        "metrics": {k: float(v) for k, v in metrics.items()},
+                        "launches": {k: f.launches
+                                     for k, f in counters.items()}}, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_phase(tmp: Path) -> dict:
+    """Two ranks on the one card over gloo, one toy DP step, against the
+    single-process step on the full batch on the card; returns rank 0's
+    kernel launches."""
+    import warnings
+
+    import torch
+
+    from mmhand_torch.parallel.dryrun import launch
+    from mmhand_torch.train.state import build_system
+    from mmhand_torch.train.step import make_train_step
+
+    out = tmp / "gloo.pt"
+    start = time.perf_counter()
+    launch([str(ROOT / "chip_smoke.py"), "--gloo-worker", str(out)], 2,
+           timeout=300)
+    seconds = time.perf_counter() - start
+    r = torch.load(out, weights_only=True)
+    cfg = toy_config(pool_size=0, dropout=False)
+    with tf32_off(), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        single = build_system(cfg, "cuda")
+        want = make_train_step(single)(toy_batches(1, 4)[0], cfg.optim.lr)
+        dp = build_system(cfg, "cpu")
+    for name, sd in r["nets"].items():
+        getattr(dp, name).load_state_dict(sd)
+    for k, v in want.items():
+        check(abs(r["metrics"][k] - float(v)) <= 2e-4 * (1 + abs(float(v))),
+              f"gloo DP loss {k}: {r['metrics'][k]} against {float(v)}")
+    summary = nets_agree(dp, single, 1, cfg.optim.lr)
+    print(f"two ranks on the card over gloo ({seconds:.1f} s with start-up): "
+          f"one toy DP step against the full-batch step: {summary}; rank 0 "
+          f"launches {r['launches']}")
+    return r["launches"]
 
 
 def jointsmap_case(name: str, batch: int, height: int, width: int):
@@ -1122,13 +1606,7 @@ def _run_main(fn, argv):
 
     import torch
 
-    from mmhand_torch.ops.bn_stats import bn_sums, bn_sums_backward
-    from mmhand_torch.ops.heatmap import gaussian_heatmaps
-    from mmhand_torch.ops.jointsmap import generate_jointsmap
-
-    counted = {"gaussian_heatmaps": gaussian_heatmaps, "bn_sums": bn_sums,
-               "bn_sums_backward": bn_sums_backward,
-               "generate_jointsmap": generate_jointsmap}
+    counted = kernel_counters()
     out = io.StringIO()
     for f in counted.values():
         f.launches = 0
@@ -1286,6 +1764,10 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    workers = {"--dp-worker": dp_worker, "--gloo-worker": gloo_worker}
+    if len(sys.argv) == 3 and sys.argv[1] in workers:
+        workers[sys.argv[1]](sys.argv[2])
+        return 0
     from mmhand_torch.ops import _build
 
     card = card_line()
@@ -1305,23 +1787,30 @@ def main() -> int:
     small_reference_phase()
     small_train_phase()
     small_eval_phase()
+    paths = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        gen_k1 = slice_phase(Path(tmp))
+        tmp = Path(tmp)
+        gen_k1 = slice_phase(tmp)
         check(gen_k1 > 0, "K1 was not launched on the generation path")
-        train = train_slice_phase(Path(tmp))
-        evals = eval_slice_phase(Path(tmp))
-    # K1 runs on every path, K2 and K2b on the train path, K3 on the
+        paths["generation"] = {"gaussian_heatmaps": gen_k1}
+        paths["train"], step_ms = train_slice_phase(tmp)
+        paths["fp16 train"] = fp16_train_phase(tmp)
+        paths["resume"] = resume_phase(tmp)
+        paths["NCCL world 1"] = nccl_phase(tmp, step_ms)
+        paths["gloo 2 ranks (rank 0)"] = gloo_phase(tmp)
+        paths["evaluation"] = eval_slice_phase(tmp)
+    # K1 runs on every path, K2 and K2b on the train paths, K3 on the
     # baselines' evaluation path
-    k1["launches"] = (gen_k1 + train["gaussian_heatmaps"]
-                      + evals["gaussian_heatmaps"])
-    k2["launches"] = train["bn_sums"]
-    k2b["launches"] = train["bn_sums_backward"]
-    k3["launches"] = evals["generate_jointsmap"]
-    print(f"launches: K1 {gen_k1} in the generation slice, "
-          f"{train['gaussian_heatmaps']} in the train slice, "
-          f"{evals['gaussian_heatmaps']} in the evaluation slice; K2 "
-          f"{k2['launches']}, K2b {k2b['launches']} in the train slice; K3 "
-          f"{k3['launches']} in the evaluation slice")
+    for rec, name in ((k1, "gaussian_heatmaps"), (k2, "bn_sums"),
+                      (k2b, "bn_sums_backward"), (k3, "generate_jointsmap")):
+        rec["launches"] = sum(p.get(name, 0) for p in paths.values())
+        check(rec["launches"] > 0, f"{name} was launched on no path")
+    check(all(paths[p]["bn_sums"] > 0 and paths[p]["bn_sums_backward"] > 0
+              for p in paths if p not in ("generation", "evaluation")),
+          "K2 or K2b was not launched on a train path")
+    print("launches by path: " + "; ".join(
+        f"{p} {dict((k, v) for k, v in l.items() if v)}"
+        for p, l in paths.items()))
 
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

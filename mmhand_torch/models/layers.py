@@ -19,17 +19,23 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from mmhand_torch.ops.bn_stats import bn_moments
+from mmhand_torch.parallel.sharding import all_reduce_sum
 
 
 @dataclasses.dataclass(frozen=True)
 class NormConfig:
     """Normalization choice (reference network_utils.py:74-84
-    get_norm_layer): 'batch' (affine), 'instance' (no affine) or 'none'."""
+    get_norm_layer): 'batch' (affine), 'instance' (no affine) or 'none'.
+
+    ``cross_rank`` averages the train-mode BatchNorm moments over the ranks
+    of torch.distributed (sync-BN), mmhand_tpu's ``axis_name``."""
 
     kind: str = "batch"
+    cross_rank: bool = False
 
     @property
     def use_bias(self) -> bool:
@@ -48,16 +54,27 @@ class BatchNorm2d(nn.BatchNorm2d):
     ``running_var``; torch's own BatchNorm2d folds the unbiased one.  While
     ``update_running_stats`` is False (``frozen_running_stats``), train mode
     leaves the running statistics as they are.  Eval mode is torch's
-    BatchNorm2d over the running statistics."""
+    BatchNorm2d over the running statistics.
 
-    def __init__(self, features: int):
+    With ``cross_rank``, every train-mode forward averages the stacked
+    (mean, mean of squares) over the ranks (a mean of moments, as
+    mmhand_tpu's ``pmean`` at mmhand_tpu/models/layers.py:183-185), the
+    discriminator forwards of the G loss included; the backward sums the
+    moments' gradients over the ranks before K2b."""
+
+    def __init__(self, features: int, cross_rank: bool = False):
         super().__init__(features, eps=1e-5, momentum=0.1)
         self.update_running_stats = True
+        self.cross_rank = cross_rank
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         mean, mean_sq = bn_moments(x)
+        if self.cross_rank:
+            stats = (all_reduce_sum(torch.stack([mean, mean_sq]))
+                     / dist.get_world_size())
+            mean, mean_sq = stats.unbind()
         var = torch.clamp(mean_sq - mean * mean, min=0.0)
         if self.update_running_stats:
             with torch.no_grad():
@@ -90,7 +107,7 @@ def frozen_running_stats(*nets: nn.Module):
 def norm_layer(cfg: NormConfig, features: int) -> nn.Module:
     """mmhand_tpu ``Norm``: the normalization module ``cfg`` names."""
     if cfg.kind == "batch":
-        return BatchNorm2d(features)
+        return BatchNorm2d(features, cross_rank=cfg.cross_rank)
     if cfg.kind == "instance":
         # InstanceNorm2d(affine=False): per-sample per-channel over H, W
         return nn.InstanceNorm2d(features, eps=1e-5, affine=False)

@@ -9,18 +9,35 @@ a data-free run:
 
 It trains on ``--device`` (default cuda) and never moves to another device on
 its own.  Without ``--vgg_npz`` (tools/convert_torch_weights.py) the
-perceptual term runs on random VGG19 weights, with a warning.  Dropout masks
-come from ``torch.manual_seed(--seed)``.
+perceptual term runs on random VGG19 weights, with a warning.
+
+``--continue_train`` resumes from ``state_<--which_epoch>.pt`` when it
+exists.  ``--multihost`` trains data-parallel, one process per device, as
+launched by torchrun: NCCL on ``cuda:LOCAL_RANK``, or gloo with
+``--device cpu``; --batchSize is the global batch.
+
+    python -m torch.distributed.run --nproc_per_node 4 \\
+        -m mmhand_torch.scripts.train --multihost --dataset synthetic ...
+
+``--profile`` writes a torch.profiler trace of the first steps (3 unless
+--max_steps says otherwise) to ``<checkpoints_dir>/<name>/trace``.  Float16
+with loss scaling is ``PrecisionConfig(compute_dtype="float16",
+loss_scaling=True)`` through ``train()``; the command line has no flag for
+either, as mmhand_tpu's has none.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 
-import torch
+import torch.distributed as dist
 
 from mmhand_torch.config import Config, add_cli_args, from_cli_args
+from mmhand_torch.parallel import init_distributed
 from mmhand_torch.train.loop import TrainResult, train
+from mmhand_torch.utils.logging import profile_trace
 
 
 def main(argv=None) -> TrainResult:
@@ -37,16 +54,37 @@ def main(argv=None) -> TrainResult:
                              "(tools/convert_torch_weights.py)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to train on")
+    parser.add_argument("--profile", action="store_true",
+                        help="torch.profiler trace of the first steps under "
+                             "checkpoints/<name>/trace")
+    parser.add_argument("--multihost", action="store_true",
+                        help="one rank of a torchrun launch: data-parallel "
+                             "over torch.distributed")
     args = parser.parse_args(argv)
 
     cfg = from_cli_args(args, Config())
-    torch.manual_seed(cfg.data.seed)
-    result = train(cfg, device=args.device, max_steps=args.max_steps,
-                   vgg_npz=args.vgg_npz, total_epochs=args.epochs)
-    rate = ("" if result.images_per_sec is None else
-            f"; {result.images_per_sec:.2f} images/s after the first step")
-    print(f"done: {result.steps} steps{rate}, last metrics: "
-          f"{ {k: round(v, 4) for k, v in result.last_metrics.items()} }")
+    device, master = args.device, True
+    if args.multihost:
+        device = init_distributed(args.device)
+        master = dist.get_rank() == 0
+    max_steps = (args.max_steps or 3) if args.profile else args.max_steps
+    trace_dir = os.path.join(cfg.run.checkpoints_dir, cfg.run.name, "trace")
+    try:
+        with (profile_trace(trace_dir) if args.profile and master
+              else contextlib.nullcontext()):
+            result = train(cfg, device=device, max_steps=max_steps,
+                           vgg_npz=args.vgg_npz, total_epochs=args.epochs,
+                           distributed=args.multihost)
+    finally:
+        if args.multihost:
+            dist.destroy_process_group()
+    if master:
+        if args.profile:
+            print(f"profile trace written to {trace_dir}")
+        rate = ("" if result.images_per_sec is None else
+                f"; {result.images_per_sec:.2f} images/s after the first step")
+        print(f"done: {result.steps} steps{rate}, last metrics: "
+              f"{ {k: round(v, 4) for k, v in result.last_metrics.items()} }")
     return result
 
 

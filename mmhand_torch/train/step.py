@@ -16,9 +16,20 @@ reaches their optimizers, and their BatchNorms keep their running statistics
 (``frozen_running_stats``).  Each D step runs its real forward, then its fake
 forward, both updating the running statistics (:171-186).
 
+Every update runs backward, then, with PrecisionConfig.loss_scaling, the
+scaled-loss path of mmhand_tpu/train/step.py:181-201 (scale the loss,
+unscale the gradients, OR-vote a non-finite gradient across ranks, update the
+phase's scale, skip ``opt.step()`` once the step has overflowed, so Adam's
+count and moments stay as they were); then, over several ranks, the
+gradients averaged across them (mmhand_tpu's ``psync``), then
+``opt.step()``.  The overflow flag costs one host sync per phase, on this
+path only.
+
 Loss contract (reference get_current_errors, MMHandModel.py:332-341): the six
 keys pair_L1loss, pair_GANloss, origin_L1, perceptual, D_PP, D_PB, with D_*
-from the last of the DG_ratio iterations, as 0-d tensors on the device.
+from the last of the DG_ratio iterations, as 0-d tensors on the device,
+unscaled and averaged over the ranks; with loss scaling, also
+``amp_overflow`` (1.0 when the step's updates were skipped).
 """
 
 from __future__ import annotations
@@ -31,7 +42,16 @@ import torch
 from mmhand_torch.losses.gan import gan_loss
 from mmhand_torch.models.generator import Generator
 from mmhand_torch.models.layers import frozen_running_stats
+from mmhand_torch.parallel.sharding import (
+    all_reduce_grads,
+    all_reduce_mean_,
+    any_rank,
+    flat_grads,
+    mean_metrics,
+    set_grads_,
+)
 from mmhand_torch.train.pool import pool_query_random
+from mmhand_torch.train.precision import grads_overflow, unscale_, update_scale
 from mmhand_torch.train.state import MMHandSystem
 
 
@@ -130,6 +150,8 @@ class TrainStep:
         self.lam_gan = loss.lambda_gan
         self.gan_mode = loss.gan_mode
         self.dg_ratio = system.config.optim.dg_ratio
+        # the step's sticky overflow flag (0-d bool), with loss scaling
+        self.overflow: Optional[torch.Tensor] = None
 
     def __call__(self, batch: dict, lr: float) -> dict:
         fake, metrics = self.g_phase(batch, lr)
@@ -145,7 +167,40 @@ class TrainStep:
             loss_d_pb = self.d_phase("pb", real_pb, self.replay("pb", fake_pb),
                                      lr)
         self.system.step += 1
-        return dict(metrics, D_PP=loss_d_pp, D_PB=loss_d_pb)
+        metrics = dict(metrics, D_PP=loss_d_pp, D_PB=loss_d_pb)
+        if self.system.scales is not None:
+            metrics["amp_overflow"] = self.overflow.float()
+        if self.system.distributed:
+            metrics = mean_metrics(metrics)
+        return metrics
+
+    def update(self, which: str, net: torch.nn.Module,
+               opt: torch.optim.Optimizer, loss: torch.Tensor) -> None:
+        """Backward of ``loss`` and ``opt.step()`` of ``net``; ``which`` names
+        the loss's scaler: 'g', 'd_pp' or 'd_pb'.  The G phase starts the
+        step's overflow flag, the D phases add to it."""
+        s = self.system
+        if s.scales is None:
+            loss.backward()
+            if s.distributed:
+                all_reduce_grads(net)
+            opt.step()
+            return
+        scale = s.scales[which]
+        (loss * scale.scale).backward()
+        params = [p for p in net.parameters() if p.requires_grad]
+        flat = unscale_(flat_grads(params), scale)
+        overflow = grads_overflow(flat)
+        if s.distributed:
+            overflow = any_rank(overflow)
+        s.scales[which] = update_scale(scale, overflow)
+        self.overflow = (overflow if which == "g"
+                         else self.overflow | overflow)
+        if s.distributed:
+            all_reduce_mean_(flat)
+        set_grads_(params, flat)
+        if not bool(self.overflow):  # the phase's host sync
+            opt.step()
 
     def l1_terms(self, fake, real):
         """(pair_L1loss, origin_L1, perceptual)."""
@@ -175,8 +230,7 @@ class TrainStep:
         loss_gan_pp = gan_loss(pred_pp, True, self.gan_mode)
         pair_l1, origin_l1, percep = self.l1_terms(fake, h2)
         pair_gan = (loss_gan_pb * self.lam_gan + loss_gan_pp * self.lam_gan) / 2.0
-        (pair_l1 + pair_gan).backward()
-        s.opt_g.step()
+        self.update("g", s.generator, s.opt_g, pair_l1 + pair_gan)
         metrics = {"pair_L1loss": pair_l1, "pair_GANloss": pair_gan,
                    "origin_L1": origin_l1, "perceptual": percep}
         return fake.detach(), {k: v.detach() for k, v in metrics.items()}
@@ -200,8 +254,7 @@ class TrainStep:
         loss_real = gan_loss(net(real), True, self.gan_mode) * self.lam_gan
         loss_fake = gan_loss(net(fake), False, self.gan_mode) * self.lam_gan
         loss = (loss_real + loss_fake) * 0.5
-        loss.backward()
-        opt.step()
+        self.update(f"d_{which}", net, opt, loss)
         return loss.detach()
 
 

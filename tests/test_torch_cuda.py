@@ -168,6 +168,7 @@ def test_prepare_batch_on_card_matches_cpu(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,dtype", [
     ((16, 64, 256, 256), torch.bfloat16),   # the train step's largest site
+    ((16, 64, 256, 256), torch.float16),    # the same in the fp16 slice
     ((16, 512, 64, 64), torch.bfloat16),    # a PATBlock attention stream
     ((4, 128, 32, 32), torch.float16),
     ((3, 29, 37, 41), torch.float32)])      # ragged N and C
@@ -254,6 +255,89 @@ def test_toy_train_step_on_card_matches_cpu(cuda):
             total += v.numel()
             assert float(diff.max()) <= 2 * 2e-4 * 2, f"{name}.{k}"
         assert outside <= 0.005 * total, f"{name}: {outside} of {total}"
+
+
+@pytest.mark.cuda
+def test_train_state_on_card_restores_tensor_for_tensor(cuda, tmp_path):
+    """A train state saved from the card and loaded with map_location onto
+    the card: nets, Adams, pools, random streams, scales and step equal the
+    saved ones, and a step runs after the restore."""
+    from mmhand_torch.utils.checkpoint import CheckpointManager
+
+    cfg = Config(model=ModelConfig(fine_size=32, ngf=8, ndf=8, g_n_blocks=1,
+                                   n_layers_d=1),
+                 optim=OptimConfig(pool_size=3),
+                 data=DataConfig(dataset="synthetic"),
+                 precision=PrecisionConfig(compute_dtype="float16",
+                                           loss_scaling=True))
+    with pytest.warns(UserWarning, match="RANDOM VGG19"):
+        system = build_system(cfg, cuda)
+    rng = np.random.RandomState(4)
+    batch = {k: torch.from_numpy(rng.uniform(-1, 1, (2, 32, 32, c)).astype(
+        np.float32)).to(cuda) for k, c in (("H1", 3), ("P1", 21), ("D1", 3),
+                                           ("H2", 3), ("P2", 21), ("D2", 3))}
+    step = make_train_step(system)
+    for _ in range(2):
+        step(batch, 2e-4)
+    ckpt = CheckpointManager(str(tmp_path), "card")
+    ckpt.save(system, "latest")
+    with pytest.warns(UserWarning, match="RANDOM VGG19"):
+        fresh = build_system(cfg, cuda)
+    ckpt.restore(fresh, "latest")
+
+    def flat(tree, prefix=""):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from flat(v, f"{prefix}.{k}")
+        else:
+            yield prefix, tree
+
+    want, got = dict(flat(system.state_dict())), dict(flat(fresh.state_dict()))
+    assert set(got) == set(want)
+    for k, v in want.items():
+        if isinstance(v, torch.Tensor):
+            assert torch.equal(got[k].cpu(), v.cpu()), k
+        else:
+            assert got[k] == v, k
+    assert fresh.pool_pb.images.is_cuda and fresh.step == 2
+    assert all(torch.isfinite(torch.tensor(float(v)))
+               for v in make_train_step(fresh)(batch, 2e-4).values())
+
+
+@pytest.mark.cuda
+def test_sync_bn_world_one_over_nccl_equals_plain(cuda):
+    """Cross-rank BatchNorm in a NCCL group of one rank: the all-reduces of
+    the moments and of their gradients change nothing, so output and input
+    gradient equal the plain BatchNorm's bit for bit."""
+    import torch.distributed as dist
+
+    from mmhand_torch.models.layers import BatchNorm2d
+    from mmhand_torch.parallel.dryrun import free_port
+    from mmhand_torch.parallel.sharding import all_reduce_sum
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        plain = BatchNorm2d(64).to(cuda)
+        synced = BatchNorm2d(64, cross_rank=True).to(cuda)
+        synced.load_state_dict(plain.state_dict())
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        x = (torch.randn((4, 64, 32, 32), generator=gen, device=cuda)
+             ).contiguous(memory_format=torch.channels_last)
+        w = torch.randn(x.shape, generator=gen, device=cuda)
+        outs = []
+        for bn in (plain, synced):
+            xr = x.clone().requires_grad_()
+            y = bn(xr)
+            (y * w).sum().backward()
+            outs.append((y.detach(), xr.grad, bn.running_var.clone()))
+        before = all_reduce_sum.launches
+        synced(x)
+        assert all_reduce_sum.launches == before + 1
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 def _jointsmap_case(name, batch, height, width, seed=0):

@@ -34,7 +34,10 @@ for name in ("scripts.aug", "scripts.train", "ops.bn_stats", "train.loop",
              "losses.gan", "losses.perceptual", "ops.jointsmap", "ops.ssim",
              "eval.evaluator", "eval.metrics", "models.inception",
              "models.cpm", "models.baselines", "scripts.evaluate_gan",
-             "scripts.bench_baselines"):
+             "scripts.bench_baselines", "train.precision", "utils.logging",
+             "utils.visualize", "utils.html", "utils.liveplot",
+             "utils.checkpoint", "parallel", "parallel.mesh",
+             "parallel.sharding", "parallel.dryrun"):
     assert "mmhand_torch." + name in names, names
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
@@ -46,7 +49,7 @@ print(len(names))
 """
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 35
+    assert int(proc.stdout.strip()) >= 43
 
 
 def test_port_sources_import_no_jax():
