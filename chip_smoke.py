@@ -61,7 +61,29 @@ Between the train and evaluation paths, the rest of the trainer:
 11. Two ranks on the one card over gloo (``--gloo-worker``): one toy DP step
     against the single-process step on the full batch.
 
-Prints the kernels' JSON line, then the card's name and power limit, then
+After the evaluation path, the HPE slice and the ratio study:
+
+12. HPE train: an RHD-layout crop tree (64 random images at 256 px, packed
+    depth, annotation.pickle), then ``mmhand_torch.scripts.train_hpe.main
+    --model hpm`` at full width (Hpm2d and Hpm3d, bf16 autocast) at batch
+    32 for 6 steps, counting the kernel launches of that run (K1 once per
+    step, at sigma 5); checks the losses and that the nets moved; holds K1
+    at sigma 5 on the batch's keypoints at (32, 256, 256, 21) against its
+    plain version; times one step (CUDA events) against its FLOP count and
+    profiles it.
+13. HPE test: ``mmhand_torch.scripts.test_hpe.main`` on that checkpoint,
+    ``--model hpm`` and ``hpm3d``; every score finite (random weights, so
+    structural only).
+14. The ratio study: ``python -m mmhand_torch.scripts.mm_train_ratio`` at
+    ratios 0.5 and 1.0 on that tree (the flagship GAN one epoch at batch
+    32, aug, the HPE one epoch, test_hpe), each stage a process of its own
+    that must exit 0; checks that aug wrote exactly the images
+    ``HPEMixDataset`` marks, and prints each stage's command and summary.
+
+The kernels' JSON line gives each kernel's ``max_rel_err`` beside its
+``max_abs_err`` where an absolute error alone misleads: K2's sums of
+squares over 1M elements reach ~2.4e6, where one f32 ulp is 0.25.  It prints the kernels'
+JSON line, then the card's name and power limit, then
 ``{"ok": true, "device": {...}}`` as the last line.  Any failed phase raises
 and the exit code is not 0; without a CUDA device, or without the package
 beside this file, it stops before printing any result.
@@ -72,6 +94,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -119,8 +142,13 @@ K3_SHAPES = [("poses", 8, 256, 256), ("poses", 16, 256, 256),
 # f32 operations per pixel and bone in K3: 2 subtractions, 6 products and
 # 3 sums, 2 divisions, 2 comparisons, 1 select
 K3_OPS_PER_PIXEL_BONE = 16
+# the HPE slice: an RHD-layout tree of 64 images at 256 px; --model hpm at
+# the ratio driver's batch of 32 (scripts/mm_train_ratio.py:44), 6 steps;
+# test_hpe at its default eval_batch of 8
+HPE = dict(n_items=64, batch=32, steps=6, eval_batch=8)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM
 F32_FLOPS = 67e12           # H100 SXM, outside the tensor cores
+BF16_FLOPS = 989e12         # H100 SXM, dense bf16 on the tensor cores
 
 
 def check(ok: bool, what: str) -> None:
@@ -303,7 +331,8 @@ def kernel_phase():
           f"same function")
     record = {"name": "gaussian_heatmaps", "route": "cuda",
               "source": "mmhand_torch/csrc/heatmap.cu",
-              "replaces": K1_REPLACES, "max_abs_err": err, "ms": ms,
+              "replaces": K1_REPLACES, "max_abs_err": err,
+              "max_rel_err": None, "ms": ms,
               "plain_ms": plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
               "library_ms": None, "device_ms": device_ms}
 
@@ -417,13 +446,15 @@ def bn_kernel_phase():
                   f"ms of device time per call (profiler)")
             records = [
                 {"name": "bn_sums", "route": "cuda", "source": BN_SOURCE,
-                 "replaces": K2_REPLACES, "max_abs_err": err, "ms": ms,
+                 "replaces": K2_REPLACES, "max_abs_err": err,
+                 "max_rel_err": max(rel1, rel2), "ms": ms,
                  "plain_ms": plain_ms, "bound_ms": k2_bound,
                  "bound_by": k2_by, "library_ms": library_ms,
                  "device_ms": device_ms, "skipped_share": None},
                 {"name": "bn_sums_backward", "route": "cuda",
                  "source": BN_SOURCE, "replaces": K2B_REPLACES,
-                 "max_abs_err": bwd_err, "ms": bwd_ms,
+                 "max_abs_err": bwd_err, "max_rel_err": None,
+                 "ms": bwd_ms,
                  "plain_ms": bwd_plain_ms, "bound_ms": k2b_bound,
                  "bound_by": k2b_by, "library_ms": None,
                  "device_ms": bwd_device_ms, "skipped_share": None}]
@@ -1537,7 +1568,7 @@ def jointsmap_kernel_phase():
                 record = {"name": "generate_jointsmap", "route": "cuda",
                           "source": "mmhand_torch/csrc/jointsmap.cu",
                           "replaces": K3_REPLACES, "max_abs_err": err,
-                          "ms": ms, "plain_ms": plain_ms,
+                          "max_rel_err": None, "ms": ms, "plain_ms": plain_ms,
                           "bound_ms": k3_bound, "bound_by": k3_by,
                           "library_ms": None, "device_ms": device_ms,
                           "skipped_share": skipped_share}
@@ -1753,6 +1784,266 @@ def eval_slice_phase(tmp: Path) -> dict:
     return total
 
 
+def hpe_step_flops(system, batch) -> float:
+    """Floating-point operations of one HPE step's convolutions and linear
+    layers: 2 x the multiply-adds of each net's forward on this batch,
+    counted from the layers' shapes by hooks, times 3 (the backward forms
+    the input's and the weights' gradients, each as many)."""
+    import torch
+    from torch import nn
+
+    total = [0]
+
+    def count(module, args, out):
+        if isinstance(module, nn.Conv2d):
+            k = module.in_channels // module.groups * math.prod(
+                module.kernel_size)
+        else:
+            k = module.in_features
+        total[0] += 2 * out.numel() * k
+
+    nets = (system.hpm2d, system.hpm3d)
+    hooks = [m.register_forward_hook(count) for net in nets
+             for m in net.modules() if isinstance(m, (nn.Conv2d, nn.Linear))]
+    try:
+        with torch.no_grad(), system.autocast():
+            system.hpm2d(batch["image"])
+            system.hpm3d(batch["heatmaps"])
+    finally:
+        for h in hooks:
+            h.remove()
+    return 3.0 * total[0]
+
+
+def hpe_train_phase(tmp: Path) -> tuple[dict, Path]:
+    """The HPE path at full width through scripts.train_hpe.main on an
+    RHD-layout tree (--model hpm, batch 32, 256 px, bf16): losses, nets
+    moved, K1 at sigma 5 on the batch's keypoints, one step's time, rate,
+    FLOP share and profile.  Returns the kernels' launches in the run and
+    the tree."""
+    import torch
+
+    from mmhand_torch.data.rhd_tree import write_rhd_tree
+    from mmhand_torch.hpe import (
+        HPEMixDataset,
+        HPESystem,
+        make_hpe_prepare_batch,
+        make_hpe_train_step,
+    )
+    from mmhand_torch.ops.heatmap import gaussian_heatmaps, gaussian_heatmaps_ref
+    from mmhand_torch.scripts import train_hpe
+    from mmhand_torch.utils.checkpoint import CheckpointManager
+
+    size, batch_size, steps = FULL["size"], HPE["batch"], HPE["steps"]
+    start = time.perf_counter()
+    tree = Path(write_rhd_tree(tmp / "rhd_train", HPE["n_items"], size,
+                               SEED))
+    print(f"HPE tree: {HPE['n_items']} images at {size} px written in "
+          f"{time.perf_counter() - start:.3f} s")
+    argv = ["--dataset", "RHD", "--dataroot", str(tree), "--model", "hpm",
+            "--batchSize", str(batch_size), "--fineSize", str(size),
+            "--max_steps", str(steps), "--print_freq", "1",
+            "--checkpoints_dir", str(tmp / "hpe_ckpt"), "--name", "hpe_smoke",
+            "--device", "cuda",
+            # no epoch saves inside the run (2 steps per epoch): the loop's
+            # rate is then the steps' and the data's; a save is timed below
+            "--save_epoch_freq", "10"]
+    torch.cuda.reset_peak_memory_stats()
+    result, out, seconds, launches = _run_main(train_hpe.main, argv)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(out)
+    system, cfg = result.system, result.system.config
+    check(cfg.precision.compute_dtype == "bfloat16" and system.variant == "hpm"
+          and cfg.data.augmentation_ratio == 1.0, "HPE config")
+    check(result.steps == steps, f"HPE: {result.steps} steps")
+    check(launches == {"gaussian_heatmaps": steps, "bn_sums": 0,
+                       "bn_sums_backward": 0, "generate_jointsmap": 0},
+          f"HPE launches {launches}")
+    lines = re.findall(r"\(epoch: \d+, iters: (\d+), time: [^)]*\) (.*)", out)
+    check(len(lines) == steps, f"{len(lines)} HPE loss lines")
+    for it, rest in lines:
+        values = dict(re.findall(r"(\w+): (\S+)", rest))
+        check(set(values) == {"mse", "lz"}
+              and all(math.isfinite(float(v)) for v in values.values()),
+              f"HPE step {it} losses {values}")
+    # every parameter has a gradient from the last step, and every weight
+    # moved but one whose last gradient lies below Adam's eps everywhere:
+    # with flax's lecun-normal init, Hpm3d's chain of CPM stages passes
+    # back gradients far below it, and Adam's update lr * g / (|g| + eps)
+    # then leaves the f32 weights as they were (so in mmhand_tpu too)
+    init = HPESystem(cfg, "hpm", "cpu")
+    for name, opt in (("hpm2d", system.opt2d), ("hpm3d", system.opt3d)):
+        eps = opt.defaults["eps"]
+        params = dict(getattr(system, name).named_parameters())
+        no_grad = [k for k, p in params.items() if p.grad is None]
+        check(not no_grad, f"HPE {name}: no gradient for {no_grad[:4]}")
+        still = {k: float(params[k].grad.abs().max())
+                 for k, v in getattr(init, name).state_dict().items()
+                 if k.endswith("weight")
+                 and torch.equal(params[k].detach().cpu(), v)}
+        stuck = {k: g for k, g in still.items() if g >= eps}
+        check(not stuck, f"HPE {name}: {sorted(stuck.items())[:4]} did not "
+              f"move, their gradients not below eps {eps}")
+        print(f"HPE {name}: {len(params)} parameters; {len(still)} weights "
+              f"did not move, their last gradients at most "
+              f"{max(still.values(), default=0.0):.3e} (eps {eps})")
+    check((tmp / "hpe_ckpt" / "hpe_smoke" / "state_latest.pt").exists(),
+          "HPE state_latest.pt not written")
+
+    # the host's share of a loop step: one batch read (PIL decode of 32
+    # PNGs), host clock; and one save of the whole train state
+    dataset = HPEMixDataset(cfg)
+    start = time.perf_counter()
+    raw = dataset.batch(range(batch_size))
+    read_ms = (time.perf_counter() - start) * 1e3
+    ckpt = CheckpointManager(str(tmp / "hpe_ckpt"), "hpe_smoke")
+    start = time.perf_counter()
+    ckpt.save(system, "timed")
+    save_s = time.perf_counter() - start
+    state_bytes = Path(ckpt.path("timed")).stat().st_size
+
+    # K1 at sigma 5 on the HPE path's keypoints, at its shape
+    uv = torch.from_numpy(raw["uv"]).cuda()
+    err, exempt, skipped = check_heatmaps(uv, size, size, 5.0, "HPE batch")
+    k1_ms = cuda_ms(lambda: gaussian_heatmaps(uv, size, size, 5.0))
+    k1_device = kernel_device_ms(
+        lambda: gaussian_heatmaps(uv, size, size, 5.0), K1_KERNELS)
+    k1_plain = cuda_ms(lambda: gaussian_heatmaps_ref(uv, size, size, 5.0))
+    k1_bound, k1_by = bound(batch_size * size * size * 21 * 4 + uv.numel() * 4,
+                            9 * (1 - skipped) * batch_size * size * size * 21)
+    print(f"K1 sigma 5 on the HPE batch ({batch_size}, {size}, {size}, 21): "
+          f"max_abs_err {err} ({exempt} exempt) against gaussian_heatmaps_ref; "
+          f"early-out skips {skipped:.4f}; kernel {k1_ms:.4f} ms per call "
+          f"({k1_device:.4f} ms of device time), plain {k1_plain:.4f} ms, "
+          f"bound {k1_bound:.4f} ms ({k1_by})")
+
+    # one step, CUDA events, median of the steady steps after warm-up
+    step = make_hpe_train_step(system)
+    prepare = make_hpe_prepare_batch(device="cuda")
+    batch = prepare(raw)
+    lr = cfg.optim.lr
+    prep_ms = cuda_ms(lambda: prepare(raw), iters=5, warmup=1)
+    step_ms = cuda_ms(lambda: step(batch, lr), iters=5, warmup=1)
+    flops = hpe_step_flops(system, batch)
+    report, _ = profile_step(lambda: step(prepare(raw), lr),
+                             "HPE prepare + step", {"K1": K1_KERNELS})
+    print(report)
+    rate = result.images_per_sec
+    check(rate is not None and rate > 0, "train_hpe printed no steady rate")
+    print(f"HPE train: {steps} steps at batch {batch_size} in {seconds:.3f} s "
+          f"(build and cuDNN warm-up included), {rate} images/s in the loop "
+          f"after the first step; one step {step_ms:.3f} ms (CUDA events, "
+          f"median of 5), {batch_size / step_ms * 1e3:.2f} images/s, prepare "
+          f"{prep_ms:.3f} ms; {flops / 1e12:.3f} TFLOP per step (convolutions "
+          f"and linear layers, 3 x forward), {flops / step_ms / 1e9:.1f} "
+          f"TFLOP/s, {100 * flops / step_ms / 1e-3 / BF16_FLOPS:.1f}% of the "
+          f"bf16 dense peak; peak device memory {peak_gib:.2f} GiB; launches "
+          f"{launches}")
+    print(f"HPE host work per loop step: batch read {read_ms:.3f} ms (PIL "
+          f"decode of {batch_size} PNGs, host clock); state_<label>.pt "
+          f"{state_bytes} bytes, saved in {save_s:.3f} s (each "
+          f"--save_epoch_freq epoch saves it twice)")
+    return launches, tree
+
+
+def hpe_test_phase(tmp: Path, tree: Path) -> dict:
+    """scripts.test_hpe.main on the HPE train phase's checkpoint, --model
+    hpm and hpm3d, over the tree; the scores must be finite (random
+    weights, so they are structural only).  Returns K1's launches."""
+    import torch
+
+    from mmhand_torch.scripts import test_hpe
+
+    total: dict[str, int] = {}
+    common = ["--dataset", "RHD", "--dataroot", str(tree), "--fineSize",
+              str(FULL["size"]), "--eval_batch", str(HPE["eval_batch"]),
+              "--checkpoints_dir", str(tmp / "hpe_ckpt"), "--name",
+              "hpe_smoke", "--device", "cuda"]
+    batches = HPE["n_items"] // HPE["eval_batch"]
+    for model, blocks, k1 in (("hpm", {"2d", "3d"}, 0),
+                              ("hpm3d", {"3d_z"}, batches)):
+        torch.cuda.reset_peak_memory_stats()
+        results, out, seconds, launches = _run_main(
+            test_hpe.main, common + ["--model", model])
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(set(results) == blocks
+              and all(math.isfinite(v) for r in results.values()
+                      for v in r.values()), f"test_hpe {model}: {results}")
+        check(launches["gaussian_heatmaps"] == k1
+              and launches["generate_jointsmap"] == 0,
+              f"test_hpe {model}: launches {launches}")
+        print(f"test_hpe --model {model}: {HPE['n_items']} images in "
+              f"{seconds:.3f} s, peak device memory {peak_gib:.2f} GiB, "
+              f"launches {launches}; {results} (random weights: structural "
+              f"only)")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def ratio_driver_phase(tmp: Path, tree: Path) -> None:
+    """mmhand_torch.scripts.mm_train_ratio on the card at ratios 0.5 and
+    1.0 over the tree: the flagship GAN for one epoch at batch 32 (1 and 2
+    steps), aug into {method}_{leaf}, the HPE for one epoch (2 steps) and
+    test_hpe; every stage must exit 0, the augmentation dir must hold
+    exactly the images HPEMixDataset marks, and every score be finite."""
+    from mmhand_torch.config import Config, DataConfig, ModelConfig
+    from mmhand_torch.hpe.data import HPEMixDataset, augmentation_dir_for
+
+    cmd = [sys.executable, "-m", "mmhand_torch.scripts.mm_train_ratio",
+           "--dataset", "RHD", "--dataroot", str(tree),
+           "--test_dataroot", str(tree), "--ratios", "0.5", "1.0",
+           "--batchSize", str(HPE["batch"]), "--niter", "1",
+           "--hpe_epochs", "1", "--device", "cuda",
+           "--checkpoints_dir", str(tmp / "ratio_ckpt"),
+           "--extra_gan_args", "--niter_decay", "0"]
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the stages need the card's memory
+    start = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=str(ROOT), capture_output=True, text=True,
+                          timeout=900)
+    seconds = time.perf_counter() - start
+    out = proc.stdout
+    check(proc.returncode == 0, f"the ratio driver exited {proc.returncode}:"
+          f"\n{out[-3000:]}\n{proc.stderr[-3000:]}")
+    print("\n".join(line for line in out.splitlines()
+                    if line.startswith(("+ ", "done:", "wrote "))))
+    stages = re.findall(r"^\+ \S+ -m mmhand_torch\.scripts\.(\w+) ", out, re.M)
+    check(stages == ["train", "aug", "train_hpe", "test_hpe", "train",
+                     "train_hpe", "test_hpe"], f"driver stages {stages}")
+    gan = re.findall(r"^done: (\d+) steps.*, last metrics", out, re.M)
+    hpe = re.findall(r"^done: (\d+) steps, mse=\S+ lz=\S+; ([0-9.]+) "
+                     r"images/s after the first step; (\d+) augmented", out,
+                     re.M)
+    n_aug = HPE["n_items"] // 2
+    check([int(g) for g in gan] == [1, 2], f"GAN stages {gan}")
+    check([(int(h[0]), int(h[2])) for h in hpe] == [(2, n_aug), (2, 0)],
+          f"HPE stages {hpe}")
+    written = sorted(p.name for p in (Path(augmentation_dir_for(
+        str(tree), "MM-Hand")) / "color").glob("*.png"))
+    cfg = Config(model=ModelConfig(fine_size=FULL["size"]),
+                 data=DataConfig(dataset="RHD", dataroot=str(tree),
+                                 augmentation_ratio=0.5))
+    ds = HPEMixDataset(cfg)
+    marked = sorted(Path(p).name for p, m in
+                    zip(ds.paths, ds.augmentation_map) if m)
+    check(written == marked and len(written) == n_aug,
+          f"{len(written)} fakes written, {len(marked)} marked")
+    scores = re.findall(r"^(epe_mean|epe_median|auc): (\S+)$", out, re.M)
+    check(len(scores) == 12 and all(math.isfinite(float(v))
+                                    for _, v in scores),
+          f"test_hpe scores {scores}")
+    print(f"ratio driver (0.5, 1.0): 7 stages exited 0 in {seconds:.3f} s "
+          f"(each stage its own process); GAN steps {gan}; HPE "
+          f"steps, images/s and augmented reads {hpe}; {len(written)} fakes "
+          f"in MM-Hand_{tree.name}/color, exactly the marked images; "
+          f"test_hpe epe/auc {[float(v) for _, v in scores]}")
+
+
 def main() -> int:
     if not (ROOT / "mmhand_torch" / "__init__.py").exists():
         print("chip_smoke: mmhand_torch/ is not beside this script",
@@ -1799,6 +2090,9 @@ def main() -> int:
         paths["NCCL world 1"] = nccl_phase(tmp, step_ms)
         paths["gloo 2 ranks (rank 0)"] = gloo_phase(tmp)
         paths["evaluation"] = eval_slice_phase(tmp)
+        paths["HPE train"], tree = hpe_train_phase(tmp)
+        paths["HPE test"] = hpe_test_phase(tmp, tree)
+        ratio_driver_phase(tmp, tree)
     # K1 runs on every path, K2 and K2b on the train paths, K3 on the
     # baselines' evaluation path
     for rec, name in ((k1, "gaussian_heatmaps"), (k2, "bn_sums"),
@@ -1806,15 +2100,16 @@ def main() -> int:
         rec["launches"] = sum(p.get(name, 0) for p in paths.values())
         check(rec["launches"] > 0, f"{name} was launched on no path")
     check(all(paths[p]["bn_sums"] > 0 and paths[p]["bn_sums_backward"] > 0
-              for p in paths if p not in ("generation", "evaluation")),
+              for p in paths if p not in ("generation", "evaluation",
+                                          "HPE train", "HPE test")),
           "K2 or K2b was not launched on a train path")
     print("launches by path: " + "; ".join(
         f"{p} {dict((k, v) for k, v in l.items() if v)}"
         for p, l in paths.items()))
 
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err",
-             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-             "device_ms", "skipped_share"]
+             "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "device_ms", "skipped_share"]
     print(json.dumps({"kernels": [{k: rec[k] for k in order}
                                   for rec in (k1, k2, k2b, k3)]}))
     print(card)

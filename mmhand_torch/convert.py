@@ -211,6 +211,19 @@ def cpm_state_dict_from_jax(variables: dict) -> dict[str, torch.Tensor]:
     return _named_tree(variables, drop=("trunk", "Conv_0"))
 
 
+def hpe_state_from_jax(state) -> dict:
+    """An mmhand_tpu ``HPETrainState`` -> {"hpm2d", "hpm3d"}: the port's
+    state_dicts of its ``params2d`` and ``params3d`` (None where the
+    variant has no such net), to load into ``hpe.HPESystem``'s nets, and
+    its ``step``."""
+    out = {"step": int(np.asarray(state.step))}
+    for name, params in (("hpm2d", state.params2d),
+                         ("hpm3d", state.params3d)):
+        out[name] = (None if params is None
+                     else cpm_state_dict_from_jax({"params": params}))
+    return out
+
+
 def resnet_generator_state_dict_from_jax(variables: dict, *,
                                          use_dropout: bool = False,
                                          pad_mode: str = "reflect"

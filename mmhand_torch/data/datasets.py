@@ -55,9 +55,10 @@ class PairedHandDataset:
         self.root_dir = cfg.data.dataroot
         self.annotations = load_annotations(self.root_dir)
         self.rng = np.random.default_rng(cfg.data.seed)
-        paths = self._list_images()
+        # every listed image, in listing order
+        self.image_paths = self._list_images()
         self.image_source, self.image_target = split_src_tgt(
-            paths, cfg.data.augmentation_ratio,
+            self.image_paths, cfg.data.augmentation_ratio,
             is_train=cfg.is_train, root_dir=self.root_dir,
             rng=self.rng, sort_fn=self._sort_key)
 

@@ -7,9 +7,9 @@ networks/net_hpm2d.py:26-120, net_hpm3d.py:27-145).
   output is upsampled x8 with align_corners=True bilinear.
 * Hpm3d: the same trunk and stages over the 21 predicted heatmaps, then a
   depth stage, a flatten in CHW order and three Linear layers with NO
-  activation between them (reference quirk, net_hpm3d.py:138-141).  Torch's
-  Linear needs its input width when it is built, so Hpm3d takes the input
-  size: 21 * (size / 8)^2.
+  activation between them (reference quirk, net_hpm3d.py:138-141), in
+  float32 even under autocast.  Torch's Linear needs its input width when
+  it is built, so Hpm3d takes the input size: 21 * (size / 8)^2.
 
 Module names are the reference's torch attribute names (``conv1_1``,
 ``conv5_3_CPM``, ``conv6_1_CPM``, ``stage2.conv1``, ``depth.conv1``,
@@ -120,9 +120,11 @@ class Hpm3d(_CPMBase):
         feat, outputs = self.stages(x)
         out = self.depth(torch.cat([outputs[-1], feat], 1))
         # flatten in torch's CHW order (the reference's weight layout)
-        out = out.reshape(out.shape[0], -1)
-        # three Linear layers with NO activation between (reference quirk)
-        return self.depth_fc_3(self.depth_fc_2(self.depth_fc_1(out)))
+        out = out.reshape(out.shape[0], -1).float()
+        # three Linear layers with NO activation between (reference quirk),
+        # in float32 under autocast too, as mmhand_tpu's f32 Dense layers
+        with torch.autocast(out.device.type, enabled=False):
+            return self.depth_fc_3(self.depth_fc_2(self.depth_fc_1(out)))
 
 
 def load_cpm_npz(path: str) -> dict[str, torch.Tensor]:

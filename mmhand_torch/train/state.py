@@ -164,12 +164,7 @@ class MMHandSystem:
         for name in _NETS:
             getattr(self, name).load_state_dict(d[name])
         for name in _OPTS:
-            opt = d[name]
-            # Adam keeps a non-capturable step count on the CPU
-            opt = {**opt, "state": {
-                i: {k: v.cpu() if k == "step" else v for k, v in st.items()}
-                for i, st in opt["state"].items()}}
-            getattr(self, name).load_state_dict(opt)
+            load_adam_state_dict(getattr(self, name), d[name])
         self.step = int(d["step"])
         if d["scales"] is not None:
             self.scales = {k: LossScaleState(**{
@@ -185,9 +180,19 @@ class MMHandSystem:
             torch.cuda.set_rng_state(own["rng_cuda"].cpu(), self.device)
 
 
-def _adam(net: nn.Module, cfg: Config) -> torch.optim.Adam:
-    """torch.optim.Adam as the reference's three (MMHandModel.py:90-98); the
-    loop sets the learning rate of each epoch."""
+def load_adam_state_dict(opt: torch.optim.Adam, d: dict) -> None:
+    """``opt.load_state_dict(d)`` with each parameter's step count on the
+    CPU, where a non-capturable Adam keeps it (a checkpoint read onto the
+    card holds it there)."""
+    opt.load_state_dict({**d, "state": {
+        i: {k: v.cpu() if k == "step" else v for k, v in st.items()}
+        for i, st in d["state"].items()}})
+
+
+def make_adam(net: nn.Module, cfg: Config) -> torch.optim.Adam:
+    """torch.optim.Adam as the reference's (MMHandModel.py:90-98,
+    hpm_model.py:61): --lr, (--beta1, 0.999), eps 1e-8; the loop sets the
+    learning rate of each epoch."""
     return torch.optim.Adam(net.parameters(), lr=cfg.optim.lr,
                             betas=(cfg.optim.beta1, cfg.optim.beta2), eps=1e-8)
 
@@ -236,8 +241,8 @@ def build_system(cfg: Config, device="cuda", *, vgg_npz: Optional[str] = None,
     pool_dtype = dtype or torch.float32
     return MMHandSystem(
         config=cfg, generator=g, d_pb=d_pb, d_pp=d_pp,
-        opt_g=_adam(g, cfg), opt_d_pb=_adam(d_pb, cfg),
-        opt_d_pp=_adam(d_pp, cfg),
+        opt_g=make_adam(g, cfg), opt_d_pb=make_adam(d_pb, cfg),
+        opt_d_pp=make_adam(d_pp, cfg),
         pool_pb=pool_init(pool, (size, size, m.d_pb_input_nc), pool_dtype,
                           device),
         pool_pp=pool_init(pool, (size, size, m.d_pp_input_nc), pool_dtype,

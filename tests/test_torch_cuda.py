@@ -455,3 +455,55 @@ def test_evaluator_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(on_card.judge.predict(pred.to(cuda))[2].cpu().numpy(),
                                on_cpu.judge.predict(pred)[2].numpy(),
                                rtol=1e-4, atol=1e-4 * 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["hpm", "hpm3d"])
+def test_hpe_step_on_card_matches_cpu(cuda, variant):
+    """Two HPE steps at 32 px from the same weights and batches, f32 with
+    TF32 off, the sigma-5 heatmaps rendered by K1 on the card: K1 once per
+    batch, losses within tests/test_torch_hpe.py's 2e-4, parameters as that
+    file holds them against JAX."""
+    from mmhand_torch.hpe import (
+        HPEMixDataset,
+        HPESystem,
+        make_hpe_prepare_batch,
+        make_hpe_train_step,
+    )
+
+    cfg = Config(model=ModelConfig(fine_size=32),
+                 data=DataConfig(dataset="synthetic"),
+                 precision=PrecisionConfig(compute_dtype="float32"))
+    on_cpu = HPESystem(cfg, variant, "cpu")
+    on_card = HPESystem(cfg, variant, cuda)
+    dataset = HPEMixDataset(cfg, length_for_synthetic=8)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for i in range(2):
+            raw = dataset.batch(range(3 * i, 3 * i + 3))
+            raw["weight"] = np.array([1, 1 - i, 1], np.int32)
+            before = gaussian_heatmaps.launches
+            batch = make_hpe_prepare_batch(device=cuda)(raw)
+            assert gaussian_heatmaps.launches == before + 1
+            want = make_hpe_train_step(on_cpu)(
+                make_hpe_prepare_batch(device="cpu")(raw), 2e-4)
+            got = make_hpe_train_step(on_card)(batch, 2e-4)
+            assert set(got) == set(want)
+            for k, v in want.items():
+                np.testing.assert_allclose(float(got[k]), float(v), rtol=2e-4,
+                                           err_msg=k)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    for name in ("hpm2d", "hpm3d"):
+        if getattr(on_cpu, name) is None:
+            continue
+        a = getattr(on_card, name).state_dict()
+        b = getattr(on_cpu, name).state_dict()
+        outside = total = 0
+        for k, v in b.items():
+            diff = (a[k].cpu() - v).abs()
+            outside += int((diff > 2e-5 + 1e-3 * v.abs()).sum())
+            total += v.numel()
+            assert float(diff.max()) <= 2 * 2e-4 * 2, f"{name}.{k}"
+        assert outside <= 0.005 * total, f"{name}: {outside} of {total}"
