@@ -80,6 +80,36 @@ After the evaluation path, the HPE slice and the ratio study:
     that must exit 0; checks that aug wrote exactly the images
     ``HPEMixDataset`` marks, and prints each stage's command and summary.
 
+After the ratio study, stages 1-2 from raw frames and the rest of the
+baseline zoo:
+
+15. Preprocessing: raw RHD-layout frames it writes (128 training and 32
+    evaluation frames of 320x320, two hands each: the split into left and
+    right, the right hand's flip, rejected hands and dropped masks run) and
+    an STB-layout source (B1 and B4, SK_color, BB_left and BB_right 640x480
+    frames, ``labels/*.mat``) through ``mmhand_torch.scripts.create_rhd_db``
+    and ``create_stb_db`` to 256 px crops; checks every crop's keypoints
+    inside it and B4 only under ``test/``, and prints crops per second.
+16. The exports on the RHD training crops: ``export_baseline_formats``
+    pairs, keypoints and pix2pixhd (K3 once per 64 labels, one batch held
+    against the plain rasterizer run on the CPU bit for bit), then
+    ``generate_pose_maps`` at 256x256, sigma 6.
+17. CSV training: ``scripts.train --dataset MMHand`` on that chain, the
+    flagship Config() at batch 16, bf16, 6 steps: finite losses and
+    parameters, 101 K2 and K2b launches per step and no K1; one step by
+    CUDA events and the host's read of one prerendered batch.
+18. PATN2 scoring: ``bench_baselines --arch patn2`` (ngf 64, 9 blocks) over
+    the RHD evaluation crops at eval batch 8: finite scores, K1 twice per
+    batch, K1 held against its plain version on a batch's keypoints.
+19. The library nets: PoseResNet-50 at batch 32 and 256 px (an eval
+    forward; a train-mode forward and backward with K2/K2b at its 56
+    BatchNorms; K2 over those inputs against ``torch.batch_norm_stats``;
+    at batch 2 in float32 the output and running statistics against the
+    CPU's plain version, the gradients against a float64 functional
+    forward); NLayerDiscriminator, PixelDiscriminator and PATN2Stream
+    against the CPU and in train mode on the card; every init_type on the
+    flagship generator, each conv weight's std against its formula.
+
 The kernels' JSON line gives each kernel's ``max_rel_err`` beside its
 ``max_abs_err`` where an absolute error alone misleads: K2's sums of
 squares over 1M elements reach ~2.4e6, where one f32 ulp is 0.25.  It prints the kernels'
@@ -146,6 +176,19 @@ K3_OPS_PER_PIXEL_BONE = 16
 # the ratio driver's batch of 32 (scripts/mm_train_ratio.py:44), 6 steps;
 # test_hpe at its default eval_batch of 8
 HPE = dict(n_items=64, batch=32, steps=6, eval_batch=8)
+# stages 1-2 from raw frames: RHD-layout sources of 320x320 frames with
+# two hands each (training and evaluation splits) and an STB-layout source
+# (B1 and B4, three 640x480 views), cropped to 256 px; the pix2pixhd labels
+# rasterized 64 to a K3 launch
+PRE = dict(rhd_frames=128, rhd_eval_frames=32, stb_frames=32, label_batch=64)
+# the CSV chain: the flagship Config() on the prerendered training crops at
+# batch 16, 6 steps, pose maps at sigma 6
+CSV_TRAIN = dict(batch=16, steps=6, sigma=6.0)
+# PATN2 scoring of the evaluation crops at the JAX script's eval batch
+PATN2 = dict(batch=8)
+# PoseResNet-50 (SimpleBaselines) with its 56 BatchNorms: batch 32 at 256 px,
+# against the CPU at batch 2
+POSE = dict(size=50, batch=32, cpu_batch=2, bn_sites=56)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM
 F32_FLOPS = 67e12           # H100 SXM, outside the tensor cores
 BF16_FLOPS = 989e12         # H100 SXM, dense bf16 on the tensor cores
@@ -370,6 +413,65 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
+def bn_errors(x, g1, g2):
+    """K2 and K2b on ``x`` (channels_last, on the card) against their plain
+    versions.  Returns K2's relative errors of sum x and sum x^2, its
+    largest absolute error, K2b's largest difference and K2b's output.
+    K2 sums in f32 in another order than the plain version, so its error is
+    held relative to sum |x| and sum x^2, which bound the rounding of any
+    order; K2b is the plain formula in the same order, one rounding per
+    operation, so it must agree bit for bit."""
+    import torch
+
+    from mmhand_torch.ops.bn_stats import (
+        bn_sums,
+        bn_sums_backward,
+        bn_sums_backward_ref,
+        bn_sums_ref,
+    )
+
+    s1, s2 = bn_sums(x)
+    torch.cuda.synchronize()
+    r1, r2 = bn_sums_ref(x)
+    scale1 = x.float().abs().sum((0, 2, 3)).clamp_min(1e-30)
+    rel1 = float(((s1 - r1).abs() / scale1).max())
+    rel2 = float(((s2 - r2).abs() / r2.clamp_min(1e-30)).max())
+    err = max(float((s1 - r1).abs().max()), float((s2 - r2).abs().max()))
+    dx = bn_sums_backward(x, g1, g2)
+    torch.cuda.synchronize()
+    bwd_err = float((dx.float() - bn_sums_backward_ref(x, g1, g2).float()
+                     ).abs().max())
+    return rel1, rel2, err, bwd_err, dx
+
+
+def hold_bn_inputs(what: str, inputs) -> str:
+    """K2 and K2b on each BatchNorm input that a path gave them, at the
+    path's shapes and type, against their plain versions with
+    ``bn_errors``' tolerances; returns the line to print."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    worst_rel, worst_bwd = 0.0, 0.0
+    for i, x in enumerate(inputs):
+        c = x.shape[1]
+        g1 = torch.randn(c, generator=gen, device="cuda")
+        g2 = torch.randn(c, generator=gen, device="cuda")
+        rel1, rel2, _, bwd_err, _ = bn_errors(x, g1, g2)
+        where = f"{what}'s BatchNorm input {i} {tuple(x.shape)} {x.dtype}"
+        check(rel1 <= 1e-5 and rel2 <= 1e-5,
+              f"K2 on {where}: relative errors {rel1}, {rel2}")
+        check(bwd_err == 0.0,
+              f"K2b on {where}: differs from the plain version by {bwd_err}")
+        worst_rel = max(worst_rel, rel1, rel2)
+        worst_bwd = max(worst_bwd, bwd_err)
+    types = sorted({str(x.dtype).removeprefix("torch.") for x in inputs})
+    return (f"K2 and K2b on {what}'s {len(inputs)} BatchNorm inputs "
+            f"({', '.join(types)}; C {min(x.shape[1] for x in inputs)}-"
+            f"{max(x.shape[1] for x in inputs)}) against their plain "
+            f"versions: K2 relative error at most {worst_rel:.3g}, K2b "
+            f"{worst_bwd} from the plain version")
+
+
 def bn_kernel_phase():
     """K2 and K2b against the plain version and its autograd on the card, in
     the working type; returns their records, at the largest shape."""
@@ -389,28 +491,14 @@ def bn_kernel_phase():
              ).to(getattr(torch, dtype)).contiguous(
                  memory_format=torch.channels_last)
         c = shape[1]
-        s1, s2 = bn_sums(x)
-        torch.cuda.synchronize()
-        r1, r2 = bn_sums_ref(x)
-        # f32 sums taken in another order: the error is held relative to
-        # sum |x| and sum x^2, which bound the rounding of any order
-        scale1 = x.float().abs().sum((0, 2, 3))
-        rel1 = float(((s1 - r1).abs() / scale1).max())
-        rel2 = float(((s2 - r2).abs() / r2).max())
-        check(rel1 <= 1e-5 and rel2 <= 1e-5,
-              f"K2 at {shape} {dtype}: relative errors {rel1}, {rel2}")
-        err = max(float((s1 - r1).abs().max()), float((s2 - r2).abs().max()))
-
         g1 = torch.randn(c, generator=gen, device="cuda")
         g2 = torch.randn(c, generator=gen, device="cuda")
-        dx = bn_sums_backward(x, g1, g2)
-        torch.cuda.synchronize()
+        rel1, rel2, err, bwd_err, dx = bn_errors(x, g1, g2)
+        check(rel1 <= 1e-5 and rel2 <= 1e-5,
+              f"K2 at {shape} {dtype}: relative errors {rel1}, {rel2}")
         check(dx.dtype == x.dtype and dx.shape == x.shape
               and dx.is_contiguous(memory_format=torch.channels_last),
               f"K2b output {dx.dtype} {tuple(dx.shape)}")
-        # the plain formula in the same order, one rounding per operation
-        bwd_err = float((dx.float() - bn_sums_backward_ref(x, g1, g2).float()
-                         ).abs().max())
         check(bwd_err == 0.0, f"K2b differs from the plain version by {bwd_err}")
         # autograd of the plain sums adds 2 g2 x as g2 x + g2 x: one
         # rounding of the working type apart, at most
@@ -2044,6 +2132,536 @@ def ratio_driver_phase(tmp: Path, tree: Path) -> None:
           f"test_hpe epe/auc {[float(v) for _, v in scores]}")
 
 
+
+def preprocess_phase(tmp: Path) -> tuple[Path, Path, dict]:
+    """Stage 1 from raw frames: an RHD-layout source (training and
+    evaluation splits of 320x320 frames with two hands each) and an
+    STB-layout source (B1 and B4, SK_color, BB_left and BB_right 640x480
+    frames, labels/*.mat), cropped to 256 px by the port's CLIs.  Checks
+    every crop's keypoints inside it and B4 under test/ only; returns the
+    training and evaluation crop trees and the kernels' launches (none: host
+    work)."""
+    import numpy as np
+    from PIL import Image
+
+    from mmhand_torch.data.annotations import load_annotations
+    from mmhand_torch.data.raw_sources import write_raw_rhd, write_raw_stb
+    from mmhand_torch.scripts import create_rhd_db, create_stb_db
+
+    size = FULL["size"]
+    start = time.perf_counter()
+    rhd = write_raw_rhd(tmp / "rhd_raw", PRE["rhd_frames"], SEED, "training")
+    write_raw_rhd(tmp / "rhd_raw", PRE["rhd_eval_frames"], SEED + 1,
+                  "evaluation")
+    stb = write_raw_stb(tmp / "stb_raw", PRE["stb_frames"], SEED)
+    print(f"raw sources: RHD {PRE['rhd_frames']} + {PRE['rhd_eval_frames']} "
+          f"frames, STB 2 x 3 x {PRE['stb_frames']} frames, written in "
+          f"{time.perf_counter() - start:.3f} s")
+    train, test, stb_out = tmp / "img" / "train", tmp / "rhd_test", tmp / "stb"
+    runs = [("create_rhd_db training", create_rhd_db.main,
+             [rhd, str(train), str(size), "--split", "training"],
+             PRE["rhd_frames"]),
+            ("create_rhd_db evaluation", create_rhd_db.main,
+             [rhd, str(test), str(size), "--split", "evaluation"],
+             PRE["rhd_eval_frames"]),
+            ("create_stb_db", create_stb_db.main, [stb, str(stb_out), str(size)],
+             2 * 3 * PRE["stb_frames"])]
+    total: dict[str, int] = {}
+    for what, fn, argv, frames in runs:
+        result, out, seconds, launches = _run_main(fn, argv)
+        n = result if isinstance(result, int) else sum(result.values())
+        check(n > 0 and not any(launches.values()),
+              f"{what}: {n} crops, launches {launches}")
+        print(f"{what}: {out}; {n} crops from {frames} frames in "
+              f"{seconds:.3f} s, {n / seconds:.2f} crops/s (host clock)")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    def inside(tree: Path, kinds) -> int:
+        annos, count = load_annotations(str(tree)), 0
+        for folder in kinds or annos:
+            for name, anno in annos[folder].items():
+                uv = np.asarray(anno["uv_coord"])
+                check(uv.shape == (21, 2) and uv.min() >= 0
+                      and uv.max() <= size, f"{tree}/{folder}/{name}: uv "
+                      f"outside the crop")
+                check((tree / folder / name).is_file(),
+                      f"{tree}/{folder}/{name} not written")
+                count += 1
+        first = next(iter(annos[next(iter(kinds or annos))]))
+        with Image.open(tree / next(iter(kinds or annos)) / first) as img:
+            check(img.size == (size, size), f"{tree}: crop size {img.size}")
+        return count
+
+    for tree in (train, test):
+        n = inside(tree, ("color", "depth", "mask"))
+        check(n == 3 * len(load_annotations(str(tree))["color"]),
+              f"{tree}: {n} crops")
+    split = {s: list(load_annotations(str(stb_out / s))) for s in
+             ("train", "test")}
+    check(split == {"train": ["B1Counting"], "test": ["B4Counting"]},
+          f"STB split {split}")
+    for s in ("train", "test"):
+        check(inside(stb_out / s, None) == 3 * PRE["stb_frames"],
+              f"STB {s} crops")
+    print("preprocessing: every crop's 21 keypoints lie inside its "
+          f"{size} px frame; B4 only under test/")
+    return train, test, total
+
+
+def export_phase(tmp: Path, crops: Path) -> dict:
+    """The baseline exports on the RHD training crops (pairs, keypoints,
+    pix2pixhd with K3 in batches of 64) and the pose maps at 256 px, sigma
+    6; one batch of labels held against the plain rasterizer run on the
+    CPU, bit for bit.  Returns the kernels' launches in the pix2pixhd run."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from mmhand_torch.data.annotations import load_annotations
+    from mmhand_torch.ops.jointsmap import (
+        generate_jointsmap,
+        generate_jointsmap_ref,
+    )
+    from mmhand_torch.scripts import export_baseline_formats, generate_pose_maps
+
+    size, batch = FULL["size"], PRE["label_batch"]
+    annos = load_annotations(str(crops))["color"]
+    n = len(annos)
+    for mode in ("pairs", "keypoints"):
+        got, out, seconds, launches = _run_main(
+            export_baseline_formats.main,
+            [mode, str(crops), str(tmp / f"{mode}.csv")])
+        check(got == n and not any(launches.values()),
+              f"export {mode}: {got} rows, launches {launches}")
+    labels_dir = tmp / "p2phd"
+    got, out, seconds, p2p_launches = _run_main(
+        export_baseline_formats.main,
+        ["pix2pixhd", str(crops), str(labels_dir), "--size", str(size),
+         "--device", "cuda", "--batch", str(batch)])
+    check(got == n and p2p_launches == {
+        "gaussian_heatmaps": 0, "bn_sums": 0, "bn_sums_backward": 0,
+        "generate_jointsmap": -(-n // batch)},
+        f"pix2pixhd: {got} labels, launches {p2p_launches}")
+    print(f"export pix2pixhd: {n} labels and images in {seconds:.3f} s, "
+          f"{n / seconds:.2f} images/s (PNG writes on the host), launches "
+          f"{p2p_launches}")
+    names = sorted(annos)[:batch]
+    uv = torch.from_numpy(np.stack([np.asarray(annos[k]["uv_coord"], np.float32)
+                                    for k in names]))
+    z = torch.from_numpy(np.stack([np.asarray(annos[k]["depth"], np.float32)
+                                   for k in names]))
+    want = generate_jointsmap_ref(uv, z, size, size)
+    card = generate_jointsmap(uv.cuda(), z.cuda(), size, size).cpu()
+    written = np.stack([np.asarray(Image.open(labels_dir / "train_label"
+                                              / f"color_{k}")) for k in names])
+    check(torch.equal(card, want)
+          and np.array_equal(written, want.numpy().astype(np.uint8)),
+          "pix2pixhd labels differ from the plain rasterizer")
+    print(f"pix2pixhd labels: a batch of {len(names)} equals the plain "
+          f"rasterizer on the CPU bit for bit ({int((want > 0).sum())} bone "
+          f"pixels)")
+
+    got, out, seconds, launches = _run_main(
+        generate_pose_maps.main,
+        [str(tmp / "keypoints.csv"), str(tmp / "pose" / "trainP"), "--size",
+         str(size), str(size), "--sigma", str(CSV_TRAIN["sigma"])])
+    first = np.load(tmp / "pose" / "trainP" / "color" / f"{names[0]}.npy")
+    check(got == n and first.shape == (size, size, 21)
+          and 0.9 < float(first.max()) <= 1.0 and not any(launches.values()),
+          f"pose maps: {got}, {first.shape}, max {first.max()}")
+    print(f"generate_pose_maps: {n} maps of {first.nbytes} bytes in "
+          f"{seconds:.3f} s, {n / seconds:.2f} maps/s (numpy on the host)")
+    return p2p_launches
+
+
+def csv_train_phase(tmp: Path) -> dict:
+    """scripts.train --dataset MMHand on the CSV chain: the flagship
+    Config() at batch 16, bf16, 6 steps over prerendered batches; losses and
+    parameters finite, 101 K2 and K2b launches per step and no K1; one
+    step by CUDA events and the host's read of one batch.  Returns the
+    kernels' launches in the run."""
+    import numpy as np
+    import torch
+
+    from mmhand_torch.data import build_dataset, make_prepare_batch
+    from mmhand_torch.data.loader import PRERENDERED_KEYS
+    from mmhand_torch.scripts import train as train_script
+    from mmhand_torch.train.step import make_train_step
+
+    steps, batch_size, size = CSV_TRAIN["steps"], CSV_TRAIN["batch"], FULL["size"]
+    argv = ["--dataset", "MMHand", "--imageroot", str(tmp / "img"),
+            "--poseroot", str(tmp / "pose"), "--pairLst",
+            str(tmp / "pairs.csv"), "--use_flip", "--batchSize",
+            str(batch_size), "--fineSize", str(size), "--max_steps",
+            str(steps), "--print_freq", "1", "--checkpoints_dir",
+            str(tmp / "csv_ckpt"), "--name", "csv_smoke", "--device", "cuda"]
+    torch.cuda.reset_peak_memory_stats()
+    result, out, seconds, launches = _run_main(train_script.main, argv)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(out)
+    system = result.system
+    cfg = system.config
+    check(cfg.model.ngf == 64 and cfg.model.g_n_blocks == 9
+          and cfg.precision.compute_dtype == "bfloat16"
+          and cfg.data.dataset == "MMHand", "CSV train config")
+    check(result.steps == steps, f"CSV train: {result.steps} steps")
+    check(launches == {"gaussian_heatmaps": 0,
+                       "bn_sums": BN_PER_STEP * steps,
+                       "bn_sums_backward": BN_PER_STEP * steps,
+                       "generate_jointsmap": 0},
+          f"CSV train launches {launches}")
+    lines = re.findall(r"\(epoch: \d+, iters: (\d+), time: [^)]*\) (.*)", out)
+    check(len(lines) == steps, f"{len(lines)} CSV loss lines")
+    for it, rest in lines:
+        values = dict(re.findall(r"(\w+): (\S+)", rest))
+        check(len(values) == 6 and all(math.isfinite(float(v))
+                                       for v in values.values()),
+              f"CSV step {it} losses {values}")
+    check(nets_finite(system), "CSV train: a parameter is not finite")
+
+    # the host's read of one prerendered batch (PIL decode of 64 PNGs, 32
+    # pose maps from .npy), host clock; the copy to the card and one step
+    dataset = build_dataset(cfg)
+    start = time.perf_counter()
+    items = [dataset[i] for i in range(batch_size)]
+    raw = {k: np.stack([it[k] for it in items]) for k in PRERENDERED_KEYS}
+    read_ms = (time.perf_counter() - start) * 1e3
+    npy = raw["P1"].nbytes + raw["P2"].nbytes
+    prepare = make_prepare_batch(cfg.data.sigma, "cuda")
+    batch = prepare(raw)
+    step = make_train_step(system)
+    lr = cfg.optim.lr
+    copy_ms = cuda_ms(lambda: prepare(raw), iters=5, warmup=1)
+    step_ms = cuda_ms(lambda: step(batch, lr), iters=5, warmup=1)
+    rate = result.images_per_sec
+    check(rate is not None and rate > 0, "CSV train printed no steady rate")
+    print(f"CSV train: {steps} steps at batch {batch_size} in {seconds:.3f} s "
+          f"(build, cuDNN warm-up and the latest save included), {rate} "
+          f"images/s in the loop after the first step; one step "
+          f"{step_ms:.3f} ms (CUDA events, median of 5), "
+          f"{batch_size / step_ms * 1e3:.2f} images/s; peak device memory "
+          f"{peak_gib:.2f} GiB; launches {launches}")
+    print(f"CSV host work per step: batch read {read_ms:.3f} ms (host clock; "
+          f"{npy} bytes of .npy pose maps, {sum(a.nbytes for a in raw.values())}"
+          f" bytes of float32 arrays in all); copy to the card {copy_ms:.3f} "
+          f"ms (CUDA events)")
+    return launches
+
+
+def patn2_phase(test_crops: Path) -> dict:
+    """bench_baselines --arch patn2 at full width (ngf 64, 9 blocks, 256 px,
+    eval batch 8) over the RHD evaluation crops: finite scores under random
+    weights, K1 twice per batch (P1, P2) and no other kernel; K1 held
+    against its plain version on the first batch's keypoints.  Returns the
+    kernels' launches in the run."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from mmhand_torch.config import Config, DataConfig, ModelConfig
+    from mmhand_torch.data import HostLoader, build_dataset, make_prepare_batch
+    from mmhand_torch.data.annotations import load_annotations
+    from mmhand_torch.scripts import bench_baselines
+
+    size, batch = FULL["size"], PATN2["batch"]
+    n = len(load_annotations(str(test_crops))["color"])
+    argv = ["--arch", "patn2", "--dataset", "RHD", "--dataroot",
+            str(test_crops), "--fineSize", str(size), "--eval_batch",
+            str(batch), "--device", "cuda"]
+    torch.cuda.reset_peak_memory_stats()
+    scores, out, seconds, launches = _run_main(bench_baselines.main, argv)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(out.splitlines()[-1])
+    _check_scores("bench_baselines patn2", scores, n)
+    batches = -(-n // batch)
+    check(launches == {"gaussian_heatmaps": 2 * batches, "bn_sums": 0,
+                       "bn_sums_backward": 0, "generate_jointsmap": 0},
+          f"PATN2 launches {launches}")
+
+    cfg = Config(model=ModelConfig(fine_size=size),
+                 data=DataConfig(dataset="RHD", dataroot=str(test_crops)),
+                 is_train=False)
+    raw = next(HostLoader(build_dataset(cfg), batch, shuffle=False,
+                          num_threads=1).epoch(0))
+    for key in ("src_uv", "tgt_uv"):
+        uv = torch.from_numpy(raw[key]).cuda()
+        err, exempt, skipped = check_heatmaps(uv, size, size, cfg.data.sigma,
+                                              f"PATN2 {key}")
+    prepared = make_prepare_batch(cfg.data.sigma, "cuda")(
+        {k: v for k, v in raw.items() if not k.endswith("paths")})
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        net = bench_baselines.build_baseline(cfg, "patn2", "cuda")
+    g_in = (prepared["H1"], torch.cat([prepared["P1"], prepared["P2"]], -1))
+    with torch.inference_mode():
+        g_ms = cuda_ms(lambda: net(g_in), iters=5)
+    print(f"bench_baselines patn2: {n} images at batch {batch} in "
+          f"{seconds:.3f} s (FID's 2048-d sqrtm on the host included), "
+          f"{scores['images_per_sec_steady']} images/s after the first "
+          f"batch, PATN2 G {g_ms:.3f} ms per batch of {batch} (CUDA events), "
+          f"peak device memory {peak_gib:.2f} GiB, launches {launches}; K1 "
+          f"on the batch's keypoints within {err} of its plain version")
+    return launches
+
+
+def pose_resnet_phase() -> dict:
+    """PoseResNet-50 at batch 32 and 256 px in bf16: an eval forward, one
+    train-mode forward and backward counting K2/K2b at its 56 BatchNorms;
+    K2 over those 56 inputs against torch.batch_norm_stats, and K2 and K2b
+    on each of them against their plain versions; the same
+    weights in float32 (TF32 off) at batch 2 held against the plain
+    version on the CPU: output, running statistics and every gradient.
+    Returns the kernels' launches in the train-mode pass."""
+    import copy
+
+    import torch
+
+    from mmhand_torch.models.check_nets import (
+        make_test_pose_resnet,
+        pose_resnet_f64,
+    )
+    from mmhand_torch.models.layers import BatchNorm2d
+    from mmhand_torch.ops.bn_stats import bn_sums, bn_sums_ref
+
+    size, batch, sites = FULL["size"], POSE["batch"], POSE["bn_sites"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    net = make_test_pose_resnet(POSE["size"], torch.bfloat16, SEED).to(
+        device="cuda", memory_format=torch.channels_last)
+    x = torch.rand(batch, size, size, 3, generator=gen, device="cuda") * 2 - 1
+    w = torch.randn(batch, size // 4, size // 4, 21, generator=gen,
+                    device="cuda")
+    net.eval()
+    with torch.inference_mode():
+        out = net(x)
+        eval_ms = cuda_ms(lambda: net(x), iters=5)
+    check(out.shape == (batch, size // 4, size // 4, 21)
+          and bool(torch.isfinite(out).all()), "PoseResNet eval output")
+
+    def train_pass():
+        net.zero_grad(set_to_none=True)
+        (net(x) * w).sum().backward()
+
+    net.train()
+    counted = kernel_counters()
+    for f in counted.values():
+        f.launches = 0
+    train_pass()
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counted.items()}
+    check(launches == {"gaussian_heatmaps": 0, "bn_sums": sites,
+                       "bn_sums_backward": sites, "generate_jointsmap": 0},
+          f"PoseResNet train launches {launches}")
+    check(all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+              for p in net.parameters()), "PoseResNet gradients")
+    train_ms = cuda_ms(train_pass, iters=5, warmup=1)
+
+    inputs = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: inputs.append(args[0].detach()))
+        for m in net.modules() if isinstance(m, BatchNorm2d)]
+    with torch.no_grad():
+        net(x)
+    for h in hooks:
+        h.remove()
+    check(len(inputs) == sites, f"{len(inputs)} BatchNorm inputs")
+    k2_ms = cuda_ms(lambda: [bn_sums(t) for t in inputs], iters=5)
+    lib_ms = cuda_ms(lambda: [torch.batch_norm_stats(t, 1e-5) for t in inputs],
+                     iters=5)
+    plain_ms = cuda_ms(lambda: [bn_sums_ref(t) for t in inputs], iters=5)
+    k2_device = kernel_device_ms(lambda: [bn_sums(t) for t in inputs],
+                                 K2_KERNELS, calls=5)
+    lib_device = kernel_device_ms(
+        lambda: [torch.batch_norm_stats(t, 1e-5) for t in inputs],
+        ("batch_norm",), calls=5)
+    k2_bound = sum(bound(t.numel() * t.element_size() + 2 * t.shape[1] * 4,
+                         3 * t.numel())[0] for t in inputs)
+    gb = sum(t.numel() * t.element_size() for t in inputs) / 1e9
+    report, _ = profile_step(train_pass, "PoseResNet-50 train pass",
+                             {"K2": K2_KERNELS, "K2b": K2B_KERNELS})
+    print(report)
+    print(f"PoseResNet-50 at batch {batch}, {size} px, bf16: eval forward "
+          f"{eval_ms:.3f} ms, train-mode forward and backward {train_ms:.3f} "
+          f"ms (CUDA events, median of 5); launches {launches}")
+    print(f"PoseResNet-50 BatchNorm moments over its {sites} train-mode "
+          f"inputs ({gb:.3f} GB, bf16): K2 {k2_ms:.4f} ms by CUDA events "
+          f"({k2_device:.4f} ms of device time), torch.batch_norm_stats "
+          f"{lib_ms:.4f} ms ({lib_device:.4f} ms), plain {plain_ms:.4f} ms, "
+          f"bound {k2_bound:.4f} ms")
+    print(hold_bn_inputs(f"PoseResNet-50 at batch {batch}", inputs))
+    del inputs, net
+
+    # the same weights in float32 at batch 2: card (K2, K2b) against the
+    # plain version on the CPU; the gradients also against float64
+    cpu = make_test_pose_resnet(POSE["size"], None, SEED).train()
+    card = copy.deepcopy(cpu).to(device="cuda", memory_format=torch.channels_last)
+    f64 = copy.deepcopy(cpu).double()
+    xs, ws = x[:POSE["cpu_batch"]].float().cpu(), w[:POSE["cpu_batch"]].cpu()
+    with tf32_off():
+        got = card(xs.cuda())
+        (got * ws.cuda()).sum().backward()
+    want = cpu(xs)
+    (want * ws).sum().backward()
+    (pose_resnet_f64(f64, xs.double()) * ws.double()).sum().backward()
+    got, want = got.detach(), want.detach()
+    out_err = float((got.cpu() - want).abs().max())
+    check(out_err <= 1e-4 + 1e-4 * float(want.abs().max()),
+          f"PoseResNet card output differs from the CPU by {out_err}")
+    stats_err = 0.0
+    a = card.state_dict()
+    for k, v in cpu.state_dict().items():
+        if "running" in k:
+            e = float((a[k].cpu() - v).abs().max())
+            check(e <= 1e-5 + 1e-4 * float(v.abs().max()),
+                  f"PoseResNet {k} differs by {e}")
+            stats_err = max(stats_err, e)
+    # each gradient's error against float64, as a share of its norm: the
+    # card's f32 within 4x the CPU's f32.  At batch 2 the f32 gradients of
+    # this random net lie up to ~15% from float64 in layer4 on the CPU
+    # alone (torch's own f32 BatchNorm too): rounding amplified through
+    # 50 train-mode BatchNorms, the same on either side
+    worst = (0.0, 0.0)
+    for (k, p), q, r in zip(cpu.named_parameters(), card.parameters(),
+                            f64.parameters()):
+        scale = float(r.grad.norm())
+        e_cpu = float((p.grad.double() - r.grad).norm()) / scale
+        e_card = float((q.grad.cpu().double() - r.grad).norm()) / scale
+        check(e_card <= 4 * e_cpu + 1e-6,
+              f"PoseResNet grad {k}: card {e_card:.3e}, CPU {e_cpu:.3e} "
+              f"from float64")
+        worst = max(worst, (e_card, e_cpu))
+    print(f"PoseResNet-50 train pass at batch {POSE['cpu_batch']}, f32, TF32 "
+          f"off, card against the CPU: output within {out_err:.3e}, running "
+          f"statistics within {stats_err:.3e}; gradients against float64: "
+          f"the card's at most {worst[0]:.3e} of a tensor's norm, the CPU's "
+          f"{worst[1]:.3e} there")
+    return launches
+
+
+def zoo_nets_phase() -> dict:
+    """NLayerDiscriminator, PixelDiscriminator and PATN2Stream at full
+    width: eval forwards against the CPU at 64 px in float32 (TF32 off);
+    train-mode forwards and backwards at batch 8, 256 px, bf16, counting
+    K2/K2b, and K2 and K2b on each of their BatchNorm inputs against their
+    plain versions.  Then every init type on the flagship generator, each conv
+    weight's std against its formula and the orthogonal ones
+    semi-orthogonal.  Returns the kernels' launches in the train passes."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from mmhand_torch.models.baselines import (
+        NLayerDiscriminator,
+        PATN2Stream,
+        PixelDiscriminator,
+    )
+    from mmhand_torch.models.generator import Generator
+    from mmhand_torch.models.layers import (
+        INIT_TYPES,
+        BatchNorm2d,
+        init_weights,
+        weight_fans,
+    )
+
+    size = FULL["size"]
+    rng = np.random.RandomState(SEED)
+    # each net and its train-mode BatchNorms
+    nets = {"NLayerDiscriminator": (NLayerDiscriminator, 3),
+            "PixelDiscriminator": (PixelDiscriminator, 1),
+            "PATN2Stream": (PATN2Stream, 35)}
+    total = {k: 0 for k in kernel_counters()}
+    for name, (cls, bns) in nets.items():
+        gen = torch.Generator().manual_seed(SEED)
+        cpu = init_weights(cls(compute_dtype=None), "normal", gen).eval()
+        with torch.no_grad():
+            for m in cpu.modules():
+                if isinstance(m, torch.nn.BatchNorm2d):
+                    m.running_mean.normal_(0, 0.05, generator=gen)
+                    m.running_var.uniform_(0.1, 1.0, generator=gen)
+
+        def inputs(batch, px, device):
+            x = torch.from_numpy(rng.uniform(-1, 1, (batch, px, px, 3)).astype(
+                np.float32)).to(device)
+            if cls is not PATN2Stream:
+                return x
+            p = torch.from_numpy(rng.uniform(0, 1, (batch, px, px, 42)).astype(
+                np.float32)).to(device)
+            return (x, p)
+
+        card = copy.deepcopy(cpu).to(device="cuda",
+                                     memory_format=torch.channels_last)
+        small = inputs(2, 64, "cpu")
+        with torch.no_grad(), tf32_off():
+            want = cpu(small)
+            got = card(tuple(t.cuda() for t in small)
+                       if isinstance(small, tuple) else small.cuda())
+        err = float((got.cpu() - want).abs().max())
+        check(err <= 1e-4 + 1e-4 * float(want.abs().max()),
+              f"{name}: card differs from the CPU by {err}")
+        card.compute_dtype = torch.bfloat16
+        card.train()
+        big = inputs(8, size, "cuda")
+        bn_inputs = []
+        hooks = [m.register_forward_pre_hook(
+            lambda mod, args: bn_inputs.append(args[0].detach()))
+            for m in card.modules() if isinstance(m, BatchNorm2d)]
+        counted = kernel_counters()
+        for f in counted.values():
+            f.launches = 0
+        out = card(big)
+        out.float().square().mean().backward()
+        torch.cuda.synchronize()
+        launches = {k: f.launches for k, f in counted.items()}
+        for h in hooks:
+            h.remove()
+        check(bool(torch.isfinite(out).all())
+              and launches["bn_sums"] == launches["bn_sums_backward"] == bns
+              and len(bn_inputs) == bns,
+              f"{name}: train pass, launches {launches}, "
+              f"{len(bn_inputs)} BatchNorm inputs")
+        print(f"{name}: eval at 64 px within {err:.3e} of the CPU (f32); "
+              f"train-mode pass at batch 8, {size} px, bf16: output "
+              f"{tuple(out.shape)}, launches {launches}")
+        print(hold_bn_inputs(f"{name} at batch 8, {size} px", bn_inputs))
+        for k, v in launches.items():
+            total[k] += v
+        del card, out, bn_inputs
+
+    for init_type in INIT_TYPES:
+        g = init_weights(Generator(compute_dtype=None), init_type,
+                         torch.Generator().manual_seed(SEED)).requires_grad_(False)
+        worst, checked = 0.0, 0
+        for m in g.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                check(not m.bias.any() and abs(float(m.weight.mean()) - 1)
+                      < 0.05, f"{init_type}: norm parameters")
+            if not isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+                continue
+            fan_in, fan_out, cout = weight_fans(m)
+            w = m.weight.detach()
+            if init_type == "orthogonal":
+                rows = (w.transpose(0, 1) if isinstance(
+                    m, torch.nn.ConvTranspose2d) else w).reshape(cout, -1)
+                gram = rows @ rows.T if rows.shape[0] <= rows.shape[1] \
+                    else rows.T @ rows
+                dev = float((gram - torch.eye(len(gram))).abs().max())
+                check(dev < 1e-4, f"orthogonal: {dev} off semi-orthogonal")
+            else:
+                std = {"normal": 0.02,
+                       "xavier": 0.02 * (2.0 / (fan_in + fan_out)) ** 0.5,
+                       "kaiming": (2.0 / fan_in) ** 0.5}[init_type]
+                dev = abs(float(w.std()) / std - 1)
+                check(dev < 6.0 / (2.0 * w.numel()) ** 0.5,
+                      f"{init_type}: std {float(w.std())} against {std}")
+            worst, checked = max(worst, dev), checked + 1
+        print(f"init {init_type} on the flagship G: {checked} conv weights, "
+              f"worst {'|W W^T - I|' if init_type == 'orthogonal' else 'relative std error'} "
+              f"{worst:.3e}")
+    return total
+
+
 def main() -> int:
     if not (ROOT / "mmhand_torch" / "__init__.py").exists():
         print("chip_smoke: mmhand_torch/ is not beside this script",
@@ -2093,15 +2711,23 @@ def main() -> int:
         paths["HPE train"], tree = hpe_train_phase(tmp)
         paths["HPE test"] = hpe_test_phase(tmp, tree)
         ratio_driver_phase(tmp, tree)
-    # K1 runs on every path, K2 and K2b on the train paths, K3 on the
-    # baselines' evaluation path
+        crops, test_crops, paths["preprocessing"] = preprocess_phase(tmp)
+        paths["pix2pixhd export"] = export_phase(tmp, crops)
+        paths["CSV train"] = csv_train_phase(tmp)
+        paths["PATN2 scoring"] = patn2_phase(test_crops)
+        paths["PoseResNet-50 train"] = pose_resnet_phase()
+        paths["zoo nets train"] = zoo_nets_phase()
+    # K1 runs on every path that renders heatmaps, K2 and K2b on the train
+    # paths, K3 on the baselines' evaluation path and the pix2pixhd export
     for rec, name in ((k1, "gaussian_heatmaps"), (k2, "bn_sums"),
                       (k2b, "bn_sums_backward"), (k3, "generate_jointsmap")):
         rec["launches"] = sum(p.get(name, 0) for p in paths.values())
         check(rec["launches"] > 0, f"{name} was launched on no path")
     check(all(paths[p]["bn_sums"] > 0 and paths[p]["bn_sums_backward"] > 0
               for p in paths if p not in ("generation", "evaluation",
-                                          "HPE train", "HPE test")),
+                                          "HPE train", "HPE test",
+                                          "preprocessing", "pix2pixhd export",
+                                          "PATN2 scoring")),
           "K2 or K2b was not launched on a train path")
     print("launches by path: " + "; ".join(
         f"{p} {dict((k, v) for k, v in l.items() if v)}"

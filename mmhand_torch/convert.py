@@ -2,9 +2,12 @@
 
 The exact inverses of ``convert_generator`` and ``convert_discriminator`` in
 tools/convert_mmhand_torch.py, of ``convert_resnet_generator`` and
-``convert_unet_generator`` in tools/convert_baselines_torch.py, and of the
-npz loaders of mmhand_tpu's Inception-v3 (``load_inception_npz``) and CPM
-nets (``load_cpm_state_dict``):
+``convert_unet_generator`` in tools/convert_baselines_torch.py, of
+mmhand_tpu's ``load_pose_resnet_state_dict``, and of the npz loaders of
+mmhand_tpu's Inception-v3 (``load_inception_npz``) and CPM nets
+(``load_cpm_state_dict``); and the same maps for the PATN2 generator and the
+PatchGAN discriminators of mmhand_tpu's baseline zoo, which no tool
+converts:
 
   conv        HWIO -> OIHW
   conv-transpose  (kh, kw, I, O) -> (I, O, kh, kw), then both spatial axes
@@ -90,12 +93,16 @@ def generator_state_dict_from_jax(variables: dict, *, use_dropout: bool = True,
                                   ) -> dict[str, torch.Tensor]:
     """``{"params", "batch_stats"}`` of a mmhand_tpu Generator (numpy or jax
     arrays) -> state_dict of the mmhand_torch Generator built with the same
-    ``use_dropout`` and PATBlock ``pad_mode``."""
+    ``use_dropout`` and PATBlock ``pad_mode``.  The streams are those of the
+    tree's ``stream<s>_in`` stems, so a PATN2Stream (two streams) converts
+    the same way (``patn2_state_dict_from_jax``)."""
     b = _Converted(variables)
     params, put, bn = b.params, b.put, b.bn
     n_down = sum(1 for k in params if k.startswith("stream1_down"))
+    streams = range(1, 1 + sum(1 for k in params
+                               if k.startswith("stream") and k.endswith("_in")))
     p, second_conv = _block_indices(use_dropout, pad_mode)
-    for s in (1, 2, 3):
+    for s in streams:
         prefix = f"stream{s}_down"
         put(f"{prefix}.1", _conv(params[f"stream{s}_in"]["PadConv_0"]))
         put(f"{prefix}.2", bn(f"stream{s}_in", "Norm_0", "BatchNorm_0"))
@@ -107,7 +114,7 @@ def generator_state_dict_from_jax(variables: dict, *, use_dropout: bool = True,
 
     n_blocks = sum(1 for k in params if k.startswith("att"))
     for blk in range(n_blocks):
-        for snum in (1, 2, 3):
+        for snum in streams:
             node = params[f"att{blk}"][f"stream{snum}"]
             prefix = f"att.{blk}.conv_block_stream{snum}"
             put(f"{prefix}.{p}", _conv(node["ConvNormRelu_0"]["PadConv_0"]))
@@ -124,6 +131,10 @@ def generator_state_dict_from_jax(variables: dict, *, use_dropout: bool = True,
         put(f"stream1_up.{3 * d + 1}", bn(f"up{d}_norm", "BatchNorm_0"))
     put(f"stream1_up.{3 * n_down + 1}", _conv(params["out_conv"]))
     return b.sd
+
+
+# mmhand_tpu's PATN2Stream -> models.baselines.PATN2Stream
+patn2_state_dict_from_jax = generator_state_dict_from_jax
 
 
 def discriminator_state_dict_from_jax(variables: dict, *,
@@ -275,4 +286,63 @@ def unet_generator_state_dict_from_jax(variables: dict
             put(f"{prefix}5", _convt(node["up"]))
             put(f"{prefix}6", bn(name, "up_norm", "BatchNorm_0"))
             prefix += "3.model."
+    return b.sd
+
+
+def nlayer_discriminator_state_dict_from_jax(variables: dict
+                                             ) -> dict[str, torch.Tensor]:
+    """``{"params", "batch_stats"}`` of a mmhand_tpu NLayerDiscriminator ->
+    state_dict of ``models.baselines.NLayerDiscriminator``: [conv, leaky],
+    then [conv, bn, leaky] per layer, then the head conv."""
+    b = _Converted(variables)
+    params = b.params
+    b.put("0", _conv(params["conv0"]))
+    n_layers = sum(1 for k in params if k.startswith("norm"))
+    for n in range(1, n_layers + 1):
+        b.put(f"{3 * n - 1}", _conv(params[f"conv{n}"]))
+        b.put(f"{3 * n}", b.bn(f"norm{n}", "BatchNorm_0"))
+    b.put(f"{3 * n_layers + 2}", _conv(params["head"]))
+    return b.sd
+
+
+def pixel_discriminator_state_dict_from_jax(variables: dict
+                                            ) -> dict[str, torch.Tensor]:
+    """``{"params", "batch_stats"}`` of a mmhand_tpu PixelDiscriminator ->
+    state_dict of ``models.baselines.PixelDiscriminator``: [conv, leaky,
+    conv, bn, leaky, conv]."""
+    b = _Converted(variables)
+    b.put("0", _conv(b.params["conv0"]))
+    b.put("2", _conv(b.params["conv1"]))
+    b.put("3", b.bn("norm1", "BatchNorm_0"))
+    b.put("5", _conv(b.params["head"]))
+    return b.sd
+
+
+def pose_resnet_state_dict_from_jax(variables: dict
+                                    ) -> dict[str, torch.Tensor]:
+    """``{"params", "batch_stats"}`` of a mmhand_tpu PoseResNet -> the
+    reference's torch state_dict, which ``models.baselines.PoseResNet``
+    loads: the inverse of mmhand_tpu's ``load_pose_resnet_state_dict``."""
+    b = _Converted(variables)
+    params, put, bn = b.params, b.put, b.bn
+    put("conv1", _conv(params["conv1"]))
+    put("bn1", bn("bn1"))
+    for name, node in params.items():
+        if not name.startswith("layer"):
+            continue
+        stage, block = name.removeprefix("layer").split("_")
+        prefix = f"layer{stage}.{block}"
+        for c in range(1, 4):
+            if f"conv{c}" in node:
+                put(f"{prefix}.conv{c}", _conv(node[f"conv{c}"]))
+                put(f"{prefix}.bn{c}", bn(name, f"bn{c}"))
+        if "down_conv" in node:
+            put(f"{prefix}.downsample.0", _conv(node["down_conv"]))
+            put(f"{prefix}.downsample.1", bn(name, "down_bn"))
+    i = 0
+    while f"deconv{i}" in params:
+        put(f"deconv_layers.{3 * i}", _convt(params[f"deconv{i}"]))
+        put(f"deconv_layers.{3 * i + 1}", bn(f"deconv_bn{i}"))
+        i += 1
+    put("final_layer", _conv(params["final_layer"]))
     return b.sd

@@ -21,6 +21,7 @@ import numpy as np
 
 from mmhand_torch.config import Config
 from mmhand_torch.data.annotations import load_annotations, split_src_tgt
+from mmhand_torch.data.csv_dataset import MMHandCSVDataset
 
 
 @dataclass
@@ -177,6 +178,5 @@ def build_dataset(cfg: Config):
     if name == "synthetic":
         return SyntheticHands(cfg)
     if name == "mmhand":
-        raise NotImplementedError(
-            "the MMHand CSV dataset is not ported to mmhand_torch yet")
+        return MMHandCSVDataset.from_config(cfg)
     raise ValueError(f"unknown dataset [{cfg.data.dataset}]")

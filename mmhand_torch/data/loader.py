@@ -140,6 +140,8 @@ class HostLoader:
         order = (epoch_permutation(n, self.seed, epoch) if self.shuffle
                  else np.arange(n))
         order = host_shard(order, self.host_id, self.num_hosts)
+        if hasattr(self.dataset, "set_epoch"):  # per-index draws of the epoch
+            self.dataset.set_epoch(epoch)
         nb = self.steps_per_epoch()
         batches = [order[i * self.batch_size:(i + 1) * self.batch_size]
                    for i in range(nb)]

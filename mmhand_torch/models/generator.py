@@ -55,6 +55,34 @@ def _att_conv_block(dim: int, cated: bool, cal_att: bool, norm: NormConfig,
     return nn.Sequential(*layers)
 
 
+def down_stem(in_nc: int, ngf: int, n_downsampling: int,
+              norm: NormConfig) -> nn.Sequential:
+    """A stream's downsampling stem: ReflectPad3 + Conv7 to ``ngf``, then
+    ``n_downsampling`` stride-2 Conv3 doublings (reference :158-223)."""
+    layers = conv_norm_relu(in_nc, ngf, 7, norm, pad=3, pad_mode="reflect")
+    for i in range(n_downsampling):
+        mult = 2 ** i
+        layers += conv_norm_relu(ngf * mult, ngf * mult * 2, 3, norm,
+                                 stride=2, pad=1, zero_pad_in_conv=True)
+    return nn.Sequential(*layers)
+
+
+def up_path(ngf: int, output_nc: int, n_downsampling: int,
+            norm: NormConfig) -> nn.Sequential:
+    """The image stream's way up: [ConvTranspose, norm, relu] per level,
+    then ReflectPad3 + Conv7 to ``output_nc`` (reference :240-259; the tanh
+    follows in the forward)."""
+    up = []
+    for i in range(n_downsampling):
+        mult = 2 ** (n_downsampling - i)
+        up += [up_conv(ngf * mult, ngf * mult // 2, norm.use_bias),
+               norm_layer(norm, ngf * mult // 2), nn.ReLU(True)]
+    # the final conv keeps its bias (reference :257 has no bias kwarg)
+    up += pad_conv(ngf, output_nc, 7, pad=3, pad_mode="reflect",
+                   use_bias=True)
+    return nn.Sequential(*up)
+
+
 class PATBlock(nn.Module):
     """Pose-attention block (reference models/Generator.py:8-130)."""
 
@@ -98,19 +126,9 @@ class Generator(nn.Module):
         super().__init__()
         self.compute_dtype = compute_dtype
 
-        def stem(in_nc: int) -> nn.Sequential:
-            layers = conv_norm_relu(in_nc, ngf, 7, norm, pad=3,
-                                    pad_mode="reflect")
-            for i in range(n_downsampling):
-                mult = 2 ** i
-                layers += conv_norm_relu(ngf * mult, ngf * mult * 2, 3, norm,
-                                         stride=2, pad=1,
-                                         zero_pad_in_conv=True)
-            return nn.Sequential(*layers)
-
-        self.stream1_down = stem(input_nc[0])
-        self.stream2_down = stem(input_nc[1])
-        self.stream3_down = stem(input_nc[2])
+        self.stream1_down = down_stem(input_nc[0], ngf, n_downsampling, norm)
+        self.stream2_down = down_stem(input_nc[1], ngf, n_downsampling, norm)
+        self.stream3_down = down_stem(input_nc[2], ngf, n_downsampling, norm)
 
         dim = ngf * (2 ** n_downsampling)
         self.att = nn.ModuleList(
@@ -118,15 +136,7 @@ class Generator(nn.Module):
                      use_dropout=use_dropout, pad_mode=pad_mode)
             for i in range(n_blocks))
 
-        up = []
-        for i in range(n_downsampling):
-            mult = 2 ** (n_downsampling - i)
-            up += [up_conv(ngf * mult, ngf * mult // 2, norm.use_bias),
-                   norm_layer(norm, ngf * mult // 2), nn.ReLU(True)]
-        # the final conv keeps its bias (reference :257 has no bias kwarg)
-        up += pad_conv(ngf, output_nc, 7, pad=3, pad_mode="reflect",
-                       use_bias=True)
-        self.stream1_up = nn.Sequential(*up)
+        self.stream1_up = up_path(ngf, output_nc, n_downsampling, norm)
 
     def forward(self, inputs):
         # NHWC -> NCHW views: a contiguous NHWC tensor is channels_last NCHW

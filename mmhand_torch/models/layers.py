@@ -7,9 +7,10 @@ returns the flat list of layers that the reference torch code puts into an
 ``nn.Sequential``, so a network's ``state_dict`` has the reference layout that
 tools/convert_mmhand_torch.py parses.
 
-Weight init matches the reference's ``normal`` init (reference
-models/network_utils.py:12-20): conv kernels ~ N(0, 0.02), biases 0, norm
-scales ~ N(1, 0.02), norm biases 0.
+Weight init matches the reference's (reference models/network_utils.py:
+12-72): conv kernels ~ N(0, 0.02) by default, or xavier, kaiming or
+orthogonal (``init_weights``); biases 0, norm scales ~ N(1, 0.02), norm
+biases 0.
 """
 
 from __future__ import annotations
@@ -171,18 +172,67 @@ def conv_norm_relu(in_features: int, features: int, kernel: int,
     return [*conv, norm_layer(norm, features), nn.ReLU(True)]
 
 
+INIT_TYPES = ("normal", "xavier", "kaiming", "orthogonal")
+
+
+def weight_fans(m: nn.Module) -> tuple[int, int, int]:
+    """(fan_in, fan_out, output features) of a conv, conv-transpose or
+    linear weight in mmhand_tpu's layout: a ConvTranspose2d weight
+    (in, out, kh, kw) has fan_in in * kh * kw, as mmhand_tpu's UpConv kernel
+    (torch's ``_calculate_fan_in_and_fan_out`` would give out * kh * kw)."""
+    w = m.weight
+    if isinstance(m, nn.ConvTranspose2d):
+        cin, cout = w.shape[0], w.shape[1]
+    else:
+        cout, cin = w.shape[0], w.shape[1]
+    taps = w[0, 0].numel() if w.ndim == 4 else 1
+    return cin * taps, cout * taps, cout
+
+
+def _orthogonal(m: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """A semi-orthogonal weight whose rows are the output features, as
+    mmhand_tpu's (torch's ``orthogonal_``, gain 1, on the (out, rest)
+    matrix; a ConvTranspose2d's rows are its dim 1)."""
+    w = m.weight
+    _, _, cout = weight_fans(m)
+    rest = w.numel() // cout
+    a = torch.randn(max(cout, rest), min(cout, rest), generator=generator,
+                    dtype=torch.float32)
+    q, r = torch.linalg.qr(a)
+    q = q * torch.sign(torch.diagonal(r))  # the unique decomposition
+    q = q.T if cout < rest else q          # (cout, rest)
+    if isinstance(m, nn.ConvTranspose2d):
+        q = q.reshape(cout, w.shape[0], *w.shape[2:]).transpose(0, 1)
+    w.copy_(q.reshape(w.shape))
+
+
 def init_weights(net: nn.Module, init_type: str = "normal",
                  generator: Optional[torch.Generator] = None) -> nn.Module:
-    """Draw every conv and norm parameter of ``net`` (reference
-    models/network_utils.py weights_init_normal).  Only 'normal' is ported."""
-    if init_type != "normal":
+    """Draw every conv, conv-transpose, linear and norm parameter of ``net``
+    (reference models/network_utils.py:12-72, mmhand_tpu/models/layers.py
+    ``apply_init_type``).  Biases are 0 and BatchNorm scales N(1, 0.02)
+    whatever ``init_type``; it picks the conv and linear weights' draw:
+
+    normal:     N(0, 0.02)
+    xavier:     N(0, 0.02 sqrt(2 / (fan_in + fan_out)))
+    kaiming:    N(0, sqrt(2 / fan_in))
+    orthogonal: semi-orthogonal, gain 1, rows the output features
+
+    with the fans of ``weight_fans``."""
+    if init_type not in INIT_TYPES:
         raise NotImplementedError(
-            f"initialization method [{init_type}] is not ported to "
-            f"mmhand_torch yet")
+            f"initialization method [{init_type}] is not implemented")
     with torch.no_grad():
         for m in net.modules():
-            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
-                m.weight.normal_(0.0, 0.02, generator=generator)
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+                if init_type == "orthogonal":
+                    _orthogonal(m, generator)
+                else:
+                    fan_in, fan_out, _ = weight_fans(m)
+                    std = {"normal": 0.02,
+                           "xavier": 0.02 * (2.0 / (fan_in + fan_out)) ** 0.5,
+                           "kaiming": (2.0 / fan_in) ** 0.5}[init_type]
+                    m.weight.normal_(0.0, std, generator=generator)
                 if m.bias is not None:
                     m.bias.zero_()
             elif isinstance(m, nn.BatchNorm2d):

@@ -2,21 +2,26 @@
 scripts/bench_baselines.py; reference baselines/quantitative_on_benchmarks/
 bench_p2p.py, bench_cyclegan.py).
 
-Scores a jointsmap-conditioned baseline generator over the test split with
-the same metric engine as the MM-Hand model (IS/SSIM/FID/PCK):
+Scores a baseline generator over the test split with the same metric engine
+as the MM-Hand model (IS/SSIM/FID/PCK):
 
+* --arch patn2   PoseTransfer's 2-stream PATN generator (9 blocks), input
+                 (source image H1, cat(P1, P2)): the 21-channel heatmaps of
+                 both poses, rendered by kernel K1 on the card
 * --arch resnet  CycleGAN resnet generator (9 ResnetBlocks)
 * --arch unet    pix2pix UNet (8 levels)
 
-Both take the depth-coloured bone jointsmap of the target pose (kernel K3 on
-the card), min-max normalized to [0, 1] and repeated to 3 channels.
+The jointsmap baselines take the depth-coloured bone jointsmap of the target
+pose (kernel K3 on the card), min-max normalized to [0, 1] and repeated to 3
+channels.
 
     python -m mmhand_torch.scripts.bench_baselines --arch unet --dataset RHD \\
         --dataroot /data/rhd_crop_test [--ckpt latest_net_G.pth]
 
 ``--ckpt`` is a state_dict (.pth or .npz dump) in the reference torch layout
-that tools/convert_baselines_torch.py reads; without it the generator is
-random, with a warning.  Prints one JSON line of scores.
+(for resnet and unet the one tools/convert_baselines_torch.py reads; for
+patn2 PoseTransfer's, or the port's); without it the generator is random,
+with a warning.  Prints one JSON line of scores.
 """
 
 from __future__ import annotations
@@ -32,7 +37,11 @@ import torch
 from mmhand_torch.config import Config, add_cli_args, from_cli_args
 from mmhand_torch.data import HostLoader, build_dataset, make_prepare_batch
 from mmhand_torch.eval import Evaluator
-from mmhand_torch.models.baselines import ResnetGenerator, UnetGenerator
+from mmhand_torch.models.baselines import (
+    PATN2Stream,
+    ResnetGenerator,
+    UnetGenerator,
+)
 from mmhand_torch.models.layers import NormConfig, init_weights
 from mmhand_torch.scripts.evaluate_gan import (
     Rate,
@@ -76,10 +85,9 @@ def build_baseline(cfg: Config, arch: str, device, ckpt: Optional[str] = None,
     dtype = compute_dtype(cfg.precision.compute_dtype)
     norm = NormConfig(kind=m.norm)
     if arch == "patn2":
-        raise NotImplementedError(
-            "--arch patn2 (PATN2Stream) is not ported to mmhand_torch yet: "
-            "ROADMAP item 8")
-    if arch == "resnet":
+        net = PATN2Stream(output_nc=m.output_nc, ngf=m.ngf, n_blocks=n_blocks,
+                          norm=norm, compute_dtype=dtype)
+    elif arch == "resnet":
         net = ResnetGenerator(output_nc=m.output_nc, ngf=m.ngf,
                               n_blocks=n_blocks, norm=norm,
                               compute_dtype=dtype)
@@ -134,7 +142,11 @@ def bench(cfg: Config, arch: str, batch_size: int = 8, device="cuda",
         batch = prepare({k: v for k, v in raw.items()
                          if not k.endswith("paths")})
         with torch.inference_mode():
-            fakes = net(jointsmap_condition(raw, size, device))
+            if arch == "patn2":
+                fakes = net((batch["H1"],
+                             torch.cat([batch["P1"], batch["P2"]], -1)))
+            else:
+                fakes = net(jointsmap_condition(raw, size, device))
         evaluator.feed(fakes, batch["H2"], target_xyz(raw))
         rate.add(int(fakes.shape[0]))
     timing = rate.scores()

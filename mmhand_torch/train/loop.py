@@ -84,6 +84,17 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def make_loader(cfg: Config, rank: int = 0, world: int = 1) -> HostLoader:
+    """Rank ``rank``'s loader of the configured dataset: its shard of every
+    epoch's order, at the per-rank batch (reference
+    options/base_options.py:178)."""
+    return HostLoader(build_dataset(cfg), max(1, cfg.data.batch_size // world),
+                      seed=cfg.data.seed, host_id=rank, num_hosts=world,
+                      shuffle=not cfg.data.serial_batches,
+                      num_threads=cfg.data.n_threads,
+                      max_items=cfg.data.max_dataset_size)
+
+
 def train(cfg: Config, *, device="cuda", max_steps: Optional[int] = None,
           vgg_npz: Optional[str] = None, total_epochs: Optional[int] = None,
           distributed: bool = False) -> TrainResult:
@@ -107,13 +118,8 @@ def train(cfg: Config, *, device="cuda", max_steps: Optional[int] = None,
     vis = Visualizer(run.checkpoints_dir, run.name, master=master)
     vis.save_options(cfg)
 
-    # per-rank batch (reference options/base_options.py:178)
-    local_bsz = max(1, cfg.data.batch_size // system.world)
-    loader = HostLoader(build_dataset(cfg), local_bsz, seed=cfg.data.seed,
-                        host_id=system.rank, num_hosts=system.world,
-                        shuffle=not cfg.data.serial_batches,
-                        num_threads=cfg.data.n_threads,
-                        max_items=cfg.data.max_dataset_size)
+    loader = make_loader(cfg, system.rank, system.world)
+    local_bsz = loader.batch_size
     prepare = make_prepare_batch(cfg.data.sigma, device)
 
     epochs_end = total_epochs if total_epochs is not None else (

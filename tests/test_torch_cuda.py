@@ -8,6 +8,8 @@ no JAX, so it runs where only torch is installed:
 (``--noconftest``: tests/conftest.py sets up JAX for the other files.)
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +22,10 @@ from mmhand_torch.config import (
     PrecisionConfig,
 )
 from mmhand_torch.data.loader import make_prepare_batch
+from mmhand_torch.models.check_nets import (
+    make_test_pose_resnet,
+    pose_resnet_f64,
+)
 from mmhand_torch.ops.bn_stats import (
     bn_sums,
     bn_sums_backward,
@@ -507,3 +513,112 @@ def test_hpe_step_on_card_matches_cpu(cuda, variant):
             total += v.numel()
             assert float(diff.max()) <= 2 * 2e-4 * 2, f"{name}.{k}"
         assert outside <= 0.005 * total, f"{name}: {outside} of {total}"
+
+
+@pytest.mark.cuda
+def test_pix2pixhd_labels_on_card_equal_plain(cuda, tmp_path):
+    """``export_baseline_formats pix2pixhd`` rasterizes its labels with K3
+    in batches: the label PNGs equal those of the plain version on the CPU
+    byte for byte, one launch per batch."""
+    import filecmp
+    import os
+
+    from mmhand_torch.data.preprocess import create_rhd_db
+    from mmhand_torch.data.raw_sources import write_raw_rhd
+    from mmhand_torch.scripts.export_baseline_formats import export_pix2pixhd
+
+    raw = write_raw_rhd(tmp_path / "raw", 8, seed=2)
+    crops = str(tmp_path / "crops")
+    n = create_rhd_db(raw, crops, 256, workers=4)
+    before = generate_jointsmap.launches
+    assert export_pix2pixhd(crops, str(tmp_path / "card"), 256, cuda, 4) == n
+    assert generate_jointsmap.launches == before + -(-n // 4)
+    export_pix2pixhd(crops, str(tmp_path / "cpu"), 256, "cpu", 4)
+    names = sorted(os.listdir(tmp_path / "cpu" / "train_label"))
+    assert len(names) == n
+    for name in names:
+        assert filecmp.cmp(tmp_path / "card" / "train_label" / name,
+                           tmp_path / "cpu" / "train_label" / name,
+                           shallow=False), name
+
+
+def _on_card(net, cuda):
+    return copy.deepcopy(net).to(device=cuda, memory_format=torch.channels_last)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["patn2", "pose_resnet50"])
+def test_zoo_forward_on_card_matches_cpu(cuda, arch):
+    """PATN2Stream (full width) and PoseResNet-50 in eval mode, float32
+    with TF32 off, to 1e-4 (conv taps summed in another order)."""
+    from mmhand_torch.eval.evaluator import full_fp32
+    from mmhand_torch.models.baselines import PATN2Stream
+    from mmhand_torch.models.layers import init_weights
+
+    rng = np.random.RandomState(5)
+    if arch == "patn2":
+        gen = torch.Generator().manual_seed(1)
+        net = init_weights(PATN2Stream(compute_dtype=None), "normal", gen).eval()
+        with torch.no_grad():  # a real signal, tanh not saturated
+            for m in net.modules():
+                if isinstance(m, torch.nn.BatchNorm2d):
+                    m.running_mean.normal_(0, 0.05, generator=gen)
+                    m.running_var.uniform_(0.1, 1.0, generator=gen)
+        x = (torch.from_numpy(rng.uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32)),
+             torch.from_numpy(rng.uniform(0, 1, (2, 64, 64, 42)).astype(np.float32)))
+    else:
+        net = make_test_pose_resnet(50).eval()
+        x = (torch.from_numpy(rng.uniform(-1, 1, (2, 128, 128, 3)).astype(np.float32)),)
+    card = _on_card(net, cuda)
+    with full_fp32():
+        want = net(x if arch == "patn2" else x[0])
+        got = card(tuple(a.to(cuda) for a in x) if arch == "patn2"
+                   else x[0].to(cuda))
+    assert got.shape == want.shape and got.std() > 1e-3
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_pose_resnet_train_bn_on_card_equals_plain(cuda):
+    """One train-mode forward and backward of PoseResNet-50 in float32 with
+    TF32 off: K2 and K2b at its 56 BatchNorms; the output and the running
+    statistics it leaves against the plain version on the CPU; the
+    gradients against float64."""
+    net = make_test_pose_resnet(50, seed=3).train()
+    card = _on_card(net, cuda)
+    rng = np.random.RandomState(6)
+    x = torch.from_numpy(rng.uniform(-1, 1, (2, 128, 128, 3)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(0, 1, (2, 32, 32, 21)).astype(np.float32))
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        before = (bn_sums.launches, bn_sums_backward.launches)
+        got = card(x.to(cuda))
+        (got * w.to(cuda)).sum().backward()
+        torch.cuda.synchronize()
+        assert (bn_sums.launches - before[0],
+                bn_sums_backward.launches - before[1]) == (56, 56)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    want = net(x)
+    (want * w).sum().backward()
+    np.testing.assert_allclose(got.detach().cpu().numpy(),
+                               want.detach().numpy(), rtol=1e-4, atol=1e-4)
+    a, b = card.state_dict(), net.state_dict()
+    for k, v in b.items():
+        if "running" in k:
+            np.testing.assert_allclose(a[k].cpu().numpy(), v.numpy(),
+                                       rtol=1e-4, atol=1e-5, err_msg=k)
+    # the gradients against float64 (torch's functional BatchNorm): the
+    # card's f32 within 4x the CPU's f32, as a share of each tensor's norm;
+    # at batch 2 the f32 gradients of this random net lie up to ~15% from
+    # float64 in layer4 on the CPU alone
+    f64 = copy.deepcopy(net).double()
+    (pose_resnet_f64(f64, x.double()) * w.double()).sum().backward()
+    for (k, p), q, r in zip(net.named_parameters(), card.parameters(),
+                            f64.parameters()):
+        scale = float(r.grad.norm())
+        e_cpu = float((p.grad.double() - r.grad).norm()) / scale
+        e_card = float((q.grad.cpu().double() - r.grad).norm()) / scale
+        assert e_card <= 4 * e_cpu + 1e-6, (k, e_card, e_cpu)

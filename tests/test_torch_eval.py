@@ -360,8 +360,13 @@ def test_bench_baselines_cli_and_patn2(weights, fid_inputs, capsys):
     printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert printed["arch"] == "resnet" and printed["images"] == 4
     assert "pck2d_auc" not in scores and np.isfinite(scores["fid"])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        port_bench.main(ARGV + ["--arch", "patn2", "--device", "cpu"])
+    with pytest.warns(UserWarning, match="RANDOM generator"):
+        scores = port_bench.main(ARGV + ["--arch", "patn2", "--device", "cpu",
+                                         "--eval_batch", "4", "--no_pck",
+                                         "--inception_npz", weights.inception])
+    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert printed["arch"] == "patn2" and printed["images"] == 4
+    assert np.isfinite(scores["fid"]) and np.isfinite(scores["SSIM_avg"])
 
 
 def test_baseline_checkpoints_load_in_reference_layout(tmp_path):

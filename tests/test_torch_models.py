@@ -162,8 +162,10 @@ def test_instance_norm_matches_jax():
 
 
 def test_init_types_other_than_normal_raise():
-    with pytest.raises(NotImplementedError):
-        tl.init_weights(nn.Conv2d(3, 3, 3), "xavier")
+    """Only the reference's four init types exist (the other three are
+    held against mmhand_tpu in tests/test_torch_zoo.py)."""
+    with pytest.raises(NotImplementedError, match="uniform"):
+        tl.init_weights(nn.Conv2d(3, 3, 3), "uniform")
 
 
 # --------------------------------------------------------------------------

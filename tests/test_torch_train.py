@@ -236,17 +236,23 @@ def test_train_cli_then_aug_on_cpu(tmp_path, capsys):
 
 
 def test_unported_options_raise():
-    """The options still to port raise (ROADMAP section 1: the other
-    init_types, item 13; the MMHand CSV dataset, item 14).  fp16 loss
-    scaling and --continue_train are ported: tests/test_torch_precision.py
-    and tests/test_torch_resume.py hold them."""
+    """An unknown init_type raises; the other init types build the system
+    (tests/test_torch_zoo.py holds them against mmhand_tpu); the MMHand CSV
+    dataset asks for its pair list (tests/test_torch_csv.py runs it).
+    fp16 loss scaling and --continue_train are ported:
+    tests/test_torch_precision.py and tests/test_torch_resume.py hold
+    them."""
     cfg = _config(tcfg)
-    for init_type in ("xavier", "kaiming", "orthogonal"):
-        bad = cfg.replace(model=dataclasses.replace(cfg.model,
-                                                    init_type=init_type))
-        with pytest.raises(NotImplementedError, match=init_type):
-            tstate.build_system(bad, "cpu")
-    with pytest.raises(NotImplementedError):
+    for init_type in ("xavier", "kaiming", "orthogonal", "uniform"):
+        other = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                      init_type=init_type))
+        if init_type == "uniform":
+            with pytest.raises(NotImplementedError, match=init_type):
+                tstate.build_system(other, "cpu")
+        else:
+            with pytest.warns(UserWarning, match="RANDOM VGG19"):
+                tstate.build_system(other, "cpu")
+    with pytest.raises(ValueError, match="--pairLst"):
         build_dataset(cfg.replace(data=tcfg.DataConfig(dataset="MMHand")))
     scaled = cfg.replace(precision=tcfg.PrecisionConfig(
         compute_dtype="float32", loss_scaling=True))
