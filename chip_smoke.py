@@ -9,7 +9,8 @@
    version, its bound and, where one exists, the one PyTorch call that
    computes the same function: K1 (heatmaps; also on the main paths'
    keypoints and on its early-out's hard cases, with the share of elements
-   it skips), K2 (BatchNorm sums) and K2b (their backward).  Each kernel's
+   it skips), K2 (BatchNorm sums; ``torch.batch_norm_stats``) and K2b
+   (their backward; ``torch.addcmul``).  Each kernel's
    device time per call comes from the profiler beside its CUDA-event time,
    which includes the wrapper's host work.
 3. Holds the port on the card against the port on the CPU (the path the
@@ -76,9 +77,13 @@ After the evaluation path, the HPE slice and the ratio study:
     structural only).
 14. The ratio study: ``python -m mmhand_torch.scripts.mm_train_ratio`` at
     ratios 0.5 and 1.0 on that tree (the flagship GAN one epoch at batch
-    32, aug, the HPE one epoch, test_hpe), each stage a process of its own
-    that must exit 0; checks that aug wrote exactly the images
-    ``HPEMixDataset`` marks, and prints each stage's command and summary.
+    32, aug, the HPE one epoch, test_hpe) with ``--with_hand3d
+    --hand3d_iters 4`` (at ratio 0.5: create_hand3d_db over the generated
+    images, 4 posenet iterations, eval_hand3d --mode 2d), each stage a
+    process of its own that must exit 0; checks that aug wrote exactly the
+    images ``HPEMixDataset`` marks, that posenet's loss on the generated
+    images is above 0 and its EPE and AUC finite, and prints each stage's
+    command and summary.
 
 After the ratio study, stages 1-2 from raw frames and the rest of the
 baseline zoo:
@@ -109,6 +114,18 @@ baseline zoo:
     forward); NLayerDiscriminator, PixelDiscriminator and PATN2Stream
     against the CPU and in train mode on the card; every init_type on the
     flagship generator, each conv weight's std against its formula.
+20. The hand3d stack (ColorHandPose3D), at the scripts' 256 px, crop 256,
+    batch 8, float32: the five nets, the 6-tuple, derive_batch,
+    single_obj_scoremap and crop_and_resize on the card against the CPU at
+    64 px with TF32 off (after phase 3); ``train_hand3d.main`` for
+    handsegnet, posenet and lifting (proposed), 6 steps each on synthetic
+    records, and posenet resumed for 2 (finite losses, every tensor moved,
+    one step and derive_batch timed); ``create_hand3d_db`` over the 160
+    RHD training crops and ``eval_hand3d`` in its three modes over that DB,
+    the whole pipeline's ms per batch and single_obj_scoremap's share;
+    ``run_hand3d`` on two crops and ``handpose_judge`` with both judges.
+    The hand3d nets hold no BatchNorm and no kernel of the port: their
+    paths launch none.
 
 The kernels' JSON line gives each kernel's ``max_rel_err`` beside its
 ``max_abs_err`` where an absolute error alone misleads: K2's sums of
@@ -189,6 +206,9 @@ PATN2 = dict(batch=8)
 # PoseResNet-50 (SimpleBaselines) with its 56 BatchNorms: batch 32 at 256 px,
 # against the CPU at batch 2
 POSE = dict(size=50, batch=32, cpu_batch=2, bn_sites=56)
+# the hand3d stack: the scripts' 256 px, crop 256 and batch 8, float32
+# (mmhand_tpu's dtype), 6 train steps per subnet; card against CPU at 64 px
+HAND3D = dict(size=256, crop=256, batch=8, steps=6, check_size=64)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM
 F32_FLOPS = 67e12           # H100 SXM, outside the tensor cores
 BF16_FLOPS = 989e12         # H100 SXM, dense bf16 on the tensor cores
@@ -516,6 +536,10 @@ def bn_kernel_phase():
         library_ms = cuda_ms(lambda: torch.batch_norm_stats(x, 1e-5))
         bwd_ms = cuda_ms(lambda: bn_sums_backward(x, g1, g2))
         bwd_plain_ms = cuda_ms(lambda: bn_sums_backward_ref(x, g1, g2))
+        # K2b's function as one PyTorch call, g1 and g2 in x's type
+        g1x = g1.to(x.dtype).view(1, c, 1, 1)
+        g2x = g2.to(x.dtype).view(1, c, 1, 1)
+        bwd_library_ms = cuda_ms(lambda: torch.addcmul(g1x, g2x, x, value=2))
         nbytes = x.numel() * x.element_size()
         k2_bound, k2_by = bound(nbytes + 2 * c * 4, 3 * x.numel())
         k2b_bound, k2b_by = bound(2 * nbytes + 2 * c * 4, 2 * x.numel())
@@ -525,13 +549,24 @@ def bn_kernel_phase():
               f"{k2_bound:.4f} ms ({k2_by})")
         print(f"K2b bn_sums_backward {shape} {dtype}: max_abs_err {bwd_err} "
               f"against the plain version; kernel {bwd_ms:.4f} ms, plain "
-              f"{bwd_plain_ms:.4f} ms, bound {k2b_bound:.4f} ms ({k2b_by})")
+              f"{bwd_plain_ms:.4f} ms, torch.addcmul {bwd_library_ms:.4f} "
+              f"ms, bound {k2b_bound:.4f} ms ({k2b_by})")
         if not records:
             device_ms = kernel_device_ms(lambda: bn_sums(x), K2_KERNELS)
             bwd_device_ms = kernel_device_ms(
                 lambda: bn_sums_backward(x, g1, g2), K2B_KERNELS)
+            addcmul_device_ms = kernel_device_ms(
+                lambda: torch.addcmul(g1x, g2x, x, value=2),
+                ("addcmul", "elementwise"))
+            lib_err = float((torch.addcmul(g1x, g2x, x, value=2).float()
+                             - dx.float()).abs().max())
             print(f"K2 / K2b at {shape}: {device_ms:.4f} / {bwd_device_ms:.4f} "
-                  f"ms of device time per call (profiler)")
+                  f"ms of device time per call (profiler); torch.addcmul "
+                  f"(K2b's function, g1 and g2 cast to {dtype}) "
+                  f"{addcmul_device_ms:.4f} ms of device time, "
+                  f"{bwd_library_ms:.4f} ms by CUDA events, against K2b's "
+                  f"{bwd_ms:.4f} ms; it differs from K2b by up to {lib_err} "
+                  f"(g1 and g2 rounded to {dtype})")
             records = [
                 {"name": "bn_sums", "route": "cuda", "source": BN_SOURCE,
                  "replaces": K2_REPLACES, "max_abs_err": err,
@@ -544,7 +579,7 @@ def bn_kernel_phase():
                  "max_abs_err": bwd_err, "max_rel_err": None,
                  "ms": bwd_ms,
                  "plain_ms": bwd_plain_ms, "bound_ms": k2b_bound,
-                 "bound_by": k2b_by, "library_ms": None,
+                 "bound_by": k2b_by, "library_ms": bwd_library_ms,
                  "device_ms": bwd_device_ms, "skipped_share": None}]
         del x, dx
 
@@ -2084,6 +2119,7 @@ def ratio_driver_phase(tmp: Path, tree: Path) -> None:
            "--batchSize", str(HPE["batch"]), "--niter", "1",
            "--hpe_epochs", "1", "--device", "cuda",
            "--checkpoints_dir", str(tmp / "ratio_ckpt"),
+           "--with_hand3d", "--hand3d_iters", "4",
            "--extra_gan_args", "--niter_decay", "0"]
     import gc
 
@@ -2099,10 +2135,23 @@ def ratio_driver_phase(tmp: Path, tree: Path) -> None:
     check(proc.returncode == 0, f"the ratio driver exited {proc.returncode}:"
           f"\n{out[-3000:]}\n{proc.stderr[-3000:]}")
     print("\n".join(line for line in out.splitlines()
-                    if line.startswith(("+ ", "done:", "wrote "))))
+                    if line.startswith(("+ ", "done:", "wrote ", "Training ",
+                                        "Average ", "Area "))))
     stages = re.findall(r"^\+ \S+ -m mmhand_torch\.scripts\.(\w+) ", out, re.M)
-    check(stages == ["train", "aug", "train_hpe", "test_hpe", "train",
-                     "train_hpe", "test_hpe"], f"driver stages {stages}")
+    check(stages == ["train", "aug", "train_hpe", "test_hpe",
+                     "create_hand3d_db", "train_hand3d", "eval_hand3d",
+                     "train", "train_hpe", "test_hpe"],
+          f"driver stages {stages}")
+    # the hand3d judge trains on the generated images' real keypoints: a
+    # positive posenet loss (the repaired hand side), a finite EPE and AUC
+    h3d_loss = re.findall(r"^Training finished after 4 iterations; final "
+                          r"loss (\S+)$", out, re.M)
+    check(len(h3d_loss) == 1 and float(h3d_loss[0]) > 0,
+          f"hand3d posenet loss {h3d_loss}")
+    h3d = re.findall(r"^(?:Average mean EPE|Average median EPE|Area under "
+                     r"curve): (\S+)", out, re.M)
+    check(len(h3d) == 3 and all(math.isfinite(float(v)) for v in h3d),
+          f"hand3d 2d scores {h3d}")
     gan = re.findall(r"^done: (\d+) steps.*, last metrics", out, re.M)
     hpe = re.findall(r"^done: (\d+) steps, mse=\S+ lz=\S+; ([0-9.]+) "
                      r"images/s after the first step; (\d+) augmented", out,
@@ -2125,8 +2174,10 @@ def ratio_driver_phase(tmp: Path, tree: Path) -> None:
     check(len(scores) == 12 and all(math.isfinite(float(v))
                                     for _, v in scores),
           f"test_hpe scores {scores}")
-    print(f"ratio driver (0.5, 1.0): 7 stages exited 0 in {seconds:.3f} s "
-          f"(each stage its own process); GAN steps {gan}; HPE "
+    print(f"ratio driver (0.5, 1.0) with --with_hand3d: 10 stages exited 0 "
+          f"in {seconds:.3f} s (each stage its own process); hand3d posenet "
+          f"final loss {h3d_loss[0]} on the {n_aug} generated images, its 2d "
+          f"EPE mean/median (px) and AUC {h3d}; GAN steps {gan}; HPE "
           f"steps, images/s and augmented reads {hpe}; {len(written)} fakes "
           f"in MM-Hand_{tree.name}/color, exactly the marked images; "
           f"test_hpe epe/auc {[float(v) for _, v in scores]}")
@@ -2662,6 +2713,317 @@ def zoo_nets_phase() -> dict:
     return total
 
 
+# ------------------------------------------------------------------ hand3d
+
+def _hand3d_records(n: int, size: int, seed: int) -> dict:
+    """Raw hand3d records at ``size`` px: left- or right-hand pixels in each
+    mask, most keypoints visible."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    parts = np.zeros((n, size, size), np.uint8)
+    for i in range(n):
+        y, x = rng.randint(0, size // 2, 2)
+        parts[i, y:y + size // 3, x:x + size // 3] = 5 if i % 2 else 20
+    return {"keypoint_xyz": rng.normal(size=(n, 42, 3)).astype(np.float32),
+            "keypoint_uv": rng.uniform(size * 0.1, size * 0.9,
+                                       (n, 42, 2)).astype(np.float32),
+            "cam_mat": np.tile(np.eye(3, dtype=np.float32) * size, (n, 1, 1)),
+            "image": rng.randint(0, 256, (n, size, size, 3)).astype(np.uint8),
+            "hand_parts": parts, "keypoint_vis": rng.rand(n, 42) > 0.2}
+
+
+def hand3d_reference_phase() -> None:
+    """(a) The hand3d stack on the card against the CPU at 64 px in float32
+    with TF32 off: the five nets, ColorHandPose3D's 6-tuple, derive_batch
+    (noise off), single_obj_scoremap and crop_and_resize."""
+    import numpy as np
+    import torch
+
+    from mmhand_torch.hand3d import PipelineConfig, derive_batch
+    from mmhand_torch.models import hand3d as net
+    from mmhand_torch.ops import hand3d_image as h3img
+
+    size, b = HAND3D["check_size"], 2
+    rng = np.random.RandomState(SEED)
+    image = torch.from_numpy(rng.uniform(-0.5, 0.5, (b, size, size, 3))
+                             .astype(np.float32))
+    maps = torch.from_numpy(rng.uniform(0, 1, (b, size, size, 21))
+                            .astype(np.float32))
+    side = torch.tensor([[1.0, 0.0], [0.0, 1.0]])
+    gen = torch.Generator().manual_seed(SEED)
+    s8 = size // 8
+    cases = {
+        "HandSegNet": (net.HandSegNet(), (image,)),
+        "PoseNet2D": (net.PoseNet2D(), (image,)),
+        "PosePrior": (net.PosePrior(in_size=s8), (maps[:, :s8, :s8], side)),
+        "ViewpointNet": (net.ViewpointNet(in_size=s8),
+                         (maps[:, :s8, :s8], side)),
+        "PosePriorNetwork": (net.PosePriorNetwork(crop_size=size),
+                             (maps, side)),
+    }
+    full = net.init_hand3d(net.ColorHandPose3D(crop_size=size), gen)
+    with torch.no_grad():
+        # a decisive segmentation head, so the mask and its box do not
+        # hang on logits within rounding of each other
+        full.HandSegNet.conv6_2.conv.weight.mul_(1e4)
+    cases["ColorHandPose3D"] = (full, (image, side))
+    errs = {}
+
+    def rel(a, b):
+        return float((a.cpu() - b).abs().max() / (b.abs().max() + 1e-30))
+
+    with tf32_off(), torch.no_grad():
+        for name, (module, args) in cases.items():
+            if name != "ColorHandPose3D":
+                net.init_hand3d(module, gen)
+            want = module.eval()(*args)
+            card = module.cuda()
+            got = card(*(a.cuda() for a in args))
+            if name == "ColorHandPose3D":
+                for part, g, w in zip(("scoremap", "crop", "scale", "center",
+                                       "keypoints", "coord3d"), got, want):
+                    if part in ("scale", "center"):
+                        check(torch.equal(g.cpu(), w), f"ColorHandPose3D "
+                              f"{part} on the card {g.cpu()} against {w}")
+                    else:
+                        errs[f"ColorHandPose3D.{part}"] = rel(g, w)
+            else:
+                for i, (g, w) in enumerate(zip(
+                        got if isinstance(got, (list, tuple)) else [got],
+                        want if isinstance(want, (list, tuple)) else [want])):
+                    if w is not None:
+                        errs[f"{name}[{i}]"] = rel(g, w)
+            module.cpu()
+        # f32, TF32 off, conv taps summed in another order: 1e-4 of the
+        # largest value
+        check(all(v <= 1e-4 for v in errs.values()),
+              f"hand3d nets card vs CPU: {errs}")
+
+        logits = torch.from_numpy(rng.normal(size=(b, size, size, 2))
+                                  .astype(np.float32))
+        logits[:, 10:30, 20:40, 1] += 6.0
+        mask = h3img.single_obj_scoremap(logits)
+        check(torch.equal(h3img.single_obj_scoremap(logits.cuda()).cpu(),
+                          mask) and 0 < float(mask.sum()) < mask.numel(),
+              "single_obj_scoremap on the card differs from the CPU")
+        boxes = torch.tensor([[0.1, -0.2, 0.7, 0.9], [-0.3, 0.2, 0.8, 1.4]])
+        want = h3img.crop_and_resize(image, boxes, 48)
+        errs["crop_and_resize"] = float(
+            (h3img.crop_and_resize(image.cuda(), boxes.cuda(), 48).cpu()
+             - want).abs().max())
+        # the card divides by a Python scalar as a multiply by its
+        # reciprocal: sample positions a few ulps apart
+        check(errs["crop_and_resize"] <= 1e-4,
+              f"crop_and_resize differs by {errs['crop_and_resize']}")
+
+    raw = _hand3d_records(4, size, SEED)
+    cfg = PipelineConfig(image_size=(size, size), crop_size=size // 2,
+                         use_wrist_coord=False, hand_crop=True)
+    want = derive_batch(raw, cfg, torch.Generator(), "cpu")
+    got = derive_batch(raw, cfg, torch.Generator(device="cuda"), "cuda")
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k].cpu()
+        if w.dtype in (torch.bool, torch.int32):
+            check(torch.equal(g, w), f"derive_batch {k} differs on the card")
+            continue
+        excess = float(((g - w).abs() - 1e-5 - 1e-5 * w.abs()).max())
+        check(excess <= 0, f"derive_batch {k}: beyond 1e-5 by {excess}")
+        worst = max(worst, float((g - w).abs().max()))
+    errs["derive_batch"] = worst
+    print(f"hand3d on the card against the CPU ({size} px, f32, TF32 off): "
+          f"scale and centre of ColorHandPose3D equal, single_obj_scoremap "
+          f"bit for bit, the hand side, masks and visibility equal; largest "
+          f"errors (relative for the nets) "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+
+
+def hand3d_train_phase(tmp: Path) -> dict:
+    """(b) train_hand3d.main for handsegnet, posenet and lifting (proposed)
+    at 256 px, batch 8, 6 steps each on synthetic records, then posenet
+    resumed for 2 more: finite losses, every parameter tensor moved; one
+    step per net and derive_batch timed by CUDA events.  Returns the
+    kernels' launches (none: the hand3d nets hold no BatchNorm)."""
+    import torch
+
+    from mmhand_torch.hand3d import (
+        Hand3DSystem,
+        derive_batch,
+        make_hand3d_train_step,
+    )
+    from mmhand_torch.scripts import train_hand3d
+
+    size, batch, steps = HAND3D["size"], HAND3D["batch"], HAND3D["steps"]
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    print(f"hand3d train: float32 (mmhand_tpu's dtype); TF32 in cuDNN "
+          f"convolutions {'on' if tf32[0] else 'off'}, in matmuls "
+          f"{'on' if tf32[1] else 'off'} (torch's defaults)")
+    ckpt = tmp / "hand3d_ckpt"
+    common = ["--image_size", str(size), "--crop_size", str(HAND3D["crop"]),
+              "--batch_size", str(batch), "--checkpoints_dir", str(ckpt),
+              "--name", "h3d", "--device", "cuda"]
+    total: dict[str, int] = {}
+    records = train_hand3d.synthetic_records(batch, size, SEED)
+    raw = train_hand3d.records_to_pipeline_batch(records)
+    gen = torch.Generator().manual_seed(SEED)
+    runs = [("handsegnet", ["--net", "handsegnet"], steps),
+            ("posenet", ["--net", "posenet"], steps),
+            ("lifting", ["--net", "lifting", "--variant", "proposed"], steps),
+            ("posenet", ["--net", "posenet", "--continue_train"], steps + 2)]
+    for i, (name, argv, until) in enumerate(runs):
+        resumed = "--continue_train" in argv
+        result, out, seconds, launches = _run_main(
+            train_hand3d.main, argv + common + ["--max_iter", str(until)])
+        losses = result.losses
+        check(len(losses) == (2 if resumed else steps)
+              and all(math.isfinite(v) for v in losses),
+              f"train_hand3d {name}: losses {losses}")
+        check(result.system.step == until, f"{name}: step {result.system.step}")
+        check(not any(launches.values()), f"{name}: launches {launches}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        if resumed:
+            check("resumed at step 6" in out, f"{name} did not resume:\n{out}")
+            print(f"train_hand3d --net posenet --continue_train: steps 7-8, "
+                  f"losses {[round(v, 6) for v in losses]} in "
+                  f"{seconds:.3f} s")
+            continue
+        initial = Hand3DSystem(name, "proposed", HAND3D["crop"], "cpu",
+                               seed=0).module.state_dict()
+        still = [k for k, v in result.system.module.state_dict().items()
+                 if torch.equal(v.cpu(), initial[k])]
+        check(not still, f"{name}: {len(still)} tensors did not move: "
+              f"{still[:6]}")
+        cfg = train_hand3d.pipeline_config_for(name, (size, size),
+                                               HAND3D["crop"])
+        derived = derive_batch(raw, cfg, gen, "cuda")
+        step = make_hand3d_train_step(result.system)
+        ms = cuda_ms(lambda: step(derived), iters=10, warmup=2)
+        derive_ms = cuda_ms(lambda: derive_batch(raw, cfg, gen, "cuda"),
+                            iters=10, warmup=2)
+        if name == "posenet":
+            print(profile_step(lambda: step(derived), "one posenet train step "
+                               "(batch 8, 256 px)", {})[0])
+        if name == "lifting":
+            print(profile_step(lambda: derive_batch(raw, cfg, gen, "cuda"),
+                               "derive_batch with hand_crop (batch 8)",
+                               {})[0])
+        n_params = sum(p.numel() for p in result.system.module.parameters())
+        print(f"train_hand3d --net {name}: {steps} steps in {seconds:.3f} s "
+              f"(first step included), losses "
+              f"{[round(v, 6) for v in losses]}; every one of its "
+              f"{len(initial)} tensors ({n_params} parameters) moved; one "
+              f"step {ms:.3f} ms, {batch / ms * 1e3:.2f} images/s (CUDA "
+              f"events); derive_batch {derive_ms:.3f} ms per batch of "
+              f"{batch}")
+    return total
+
+
+def hand3d_eval_phase(tmp: Path, crops: Path) -> dict:
+    """(c) create_hand3d_db over the 160 RHD training crops, eval_hand3d in
+    the three modes over that DB (posenet and lifting from the train phase,
+    the full pipeline random), and the full pipeline's ms per batch of 8
+    with single_obj_scoremap's share.  Returns the kernels' launches."""
+    import numpy as np
+    import torch
+
+    from mmhand_torch.eval.evaluator import full_fp32
+    from mmhand_torch.hand3d import load_color_hand_pose
+    from mmhand_torch.ops.hand3d_image import single_obj_scoremap
+    from mmhand_torch.scripts import create_hand3d_db, eval_hand3d
+
+    size, batch = HAND3D["size"], HAND3D["batch"]
+    db = tmp / "hand3d_gan.bin"
+    n, out, seconds, launches = _run_main(
+        create_hand3d_db.main, ["--dataroot", str(crops), "--out", str(db)])
+    check(n == 160 and db.stat().st_size == n * (
+        (42 * 5 + 9) * 4 + 2 + size * size * 4 + 42), f"GAN DB: {out}")
+    print(f"create_hand3d_db: {n} records from the RHD training crops in "
+          f"{seconds:.3f} s, {n / seconds:.2f} records/s (host clock)")
+    total = dict(launches)
+    for mode in ("2d", "3d", "full"):
+        scores, out, seconds, launches = _run_main(eval_hand3d.main, [
+            "--mode", mode, "--bin", str(db), "--name", "h3d",
+            "--checkpoints_dir", str(tmp / "hand3d_ckpt"), "--image_size",
+            str(size), "--crop_size", str(HAND3D["crop"]), "--batch_size",
+            str(batch), "--device", "cuda"])
+        check(all(math.isfinite(v) for v in scores.values())
+              and 0.0 <= scores["auc"] <= 1.0 and not any(launches.values()),
+              f"eval_hand3d --mode {mode}: {scores}, {launches}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        print(f"eval_hand3d --mode {mode} over {n} records: {scores} in "
+              f"{seconds:.3f} s, {n / seconds:.2f} images/s (random or "
+              f"6-step weights: structural only)")
+
+    net, _ = load_color_hand_pose(None, "h3d", HAND3D["crop"], "cuda")
+    rng = np.random.RandomState(SEED)
+    image = torch.from_numpy(rng.uniform(-0.5, 0.5, (batch, size, size, 3))
+                             .astype(np.float32)).cuda()
+    side = torch.tensor([[1.0, 0.0]], device="cuda").expand(batch, 2)
+    with full_fp32():
+        logits = net.detection(image)
+        full_ms = cuda_ms(lambda: net(image, side), iters=10, warmup=2)
+        mask_ms = cuda_ms(lambda: single_obj_scoremap(logits), iters=10,
+                          warmup=2)
+        mask_device_ms = kernel_device_ms(
+            lambda: single_obj_scoremap(logits), ("max_pool", "pool2d"),
+            calls=5)
+    print(f"ColorHandPose3D at {size} px, batch {batch}, f32 TF32 off: "
+          f"{full_ms:.3f} ms per batch, {batch / full_ms * 1e3:.2f} images/s; "
+          f"single_obj_scoremap ({size // 10} passes of a 21x1 and a 1x21 "
+          f"max pool) "
+          f"{mask_ms:.3f} ms, {mask_ms / full_ms:.1%} of it; its pools "
+          f"{mask_device_ms:.3f} ms of device time (profiler)")
+    return total
+
+
+def hand3d_demo_phase(tmp: Path, crops: Path) -> dict:
+    """(d) run_hand3d on two crops, and handpose_judge with both judges on
+    one sample directory; returns the kernels' launches."""
+    import json
+    import shutil
+
+    import numpy as np
+
+    from mmhand_torch.scripts import handpose_judge, run_hand3d
+
+    images = sorted((crops / "color").glob("*.png"))[:2]
+    out_dir = tmp / "hand3d_demo"
+    written, out, seconds, total = _run_main(run_hand3d.main, [
+        *map(str, images), "--out_dir", str(out_dir), "--device", "cuda",
+        "--checkpoints_dir", str(tmp / "hand3d_ckpt")])
+    for stem in written:
+        coords = json.loads((out_dir / f"{stem}_coord3d.json").read_text())
+        check(np.isfinite(coords["keypoint_coord3d"]).all()
+              and np.asarray(coords["keypoint_coord3d"]).shape == (21, 3)
+              and (out_dir / f"{stem}_crop_kp.png").stat().st_size > 0,
+              f"run_hand3d {stem}: {coords}")
+    check(len(written) == 2, f"run_hand3d wrote {written}")
+    print(f"run_hand3d: {len(written)} overlays and coord3d JSONs in "
+          f"{seconds:.3f} s")
+    sample = tmp / "judge_sample"
+    sample.mkdir()
+    for i, path in enumerate(images):
+        shutil.copy(path, sample / f"{i}.png")
+    for judge in ("hand3d", "cpm"):
+        lm, out, seconds, launches = _run_main(handpose_judge.main, [
+            str(sample), "--judge", judge, "--device", "cuda",
+            "--checkpoints_dir", str(tmp / "hand3d_ckpt")])
+        for fname in ("gt_js.json", "pred_js.json"):
+            marks = np.asarray(json.loads((sample / fname).read_text())[0][
+                "landmarks"])
+            check(marks.shape == (21, 3) and np.isfinite(marks).all(),
+                  f"handpose_judge --judge {judge} {fname}: {marks.shape}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        print(f"handpose_judge --judge {judge}: gt_js.json and pred_js.json "
+              f"of 21 finite landmarks in {seconds:.3f} s (random weights)")
+    return total
+
+
 def main() -> int:
     if not (ROOT / "mmhand_torch" / "__init__.py").exists():
         print("chip_smoke: mmhand_torch/ is not beside this script",
@@ -2696,6 +3058,7 @@ def main() -> int:
     small_reference_phase()
     small_train_phase()
     small_eval_phase()
+    hand3d_reference_phase()
     paths = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = Path(tmp)
@@ -2717,6 +3080,9 @@ def main() -> int:
         paths["PATN2 scoring"] = patn2_phase(test_crops)
         paths["PoseResNet-50 train"] = pose_resnet_phase()
         paths["zoo nets train"] = zoo_nets_phase()
+        paths["hand3d train"] = hand3d_train_phase(tmp)
+        paths["hand3d DB and evaluation"] = hand3d_eval_phase(tmp, crops)
+        paths["hand3d demos"] = hand3d_demo_phase(tmp, crops)
     # K1 runs on every path that renders heatmaps, K2 and K2b on the train
     # paths, K3 on the baselines' evaluation path and the pix2pixhd export
     for rec, name in ((k1, "gaussian_heatmaps"), (k2, "bn_sums"),
@@ -2727,7 +3093,9 @@ def main() -> int:
               for p in paths if p not in ("generation", "evaluation",
                                           "HPE train", "HPE test",
                                           "preprocessing", "pix2pixhd export",
-                                          "PATN2 scoring")),
+                                          "PATN2 scoring", "hand3d train",
+                                          "hand3d DB and evaluation",
+                                          "hand3d demos")),
           "K2 or K2b was not launched on a train path")
     print("launches by path: " + "; ".join(
         f"{p} {dict((k, v) for k, v in l.items() if v)}"

@@ -5,9 +5,9 @@ tools/convert_mmhand_torch.py, of ``convert_resnet_generator`` and
 ``convert_unet_generator`` in tools/convert_baselines_torch.py, of
 mmhand_tpu's ``load_pose_resnet_state_dict``, and of the npz loaders of
 mmhand_tpu's Inception-v3 (``load_inception_npz``) and CPM nets
-(``load_cpm_state_dict``); and the same maps for the PATN2 generator and the
-PatchGAN discriminators of mmhand_tpu's baseline zoo, which no tool
-converts:
+(``load_cpm_state_dict``); and the same maps for the PATN2 generator, the
+PatchGAN discriminators of mmhand_tpu's baseline zoo and the hand3d nets,
+which no tool converts to the port:
 
   conv        HWIO -> OIHW
   conv-transpose  (kh, kw, I, O) -> (I, O, kh, kw), then both spatial axes
@@ -233,6 +233,15 @@ def hpe_state_from_jax(state) -> dict:
         out[name] = (None if params is None
                      else cpm_state_dict_from_jax({"params": params}))
     return out
+
+
+def hand3d_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """``params`` of any mmhand_tpu hand3d net (HandSegNet, PoseNet2D,
+    PosePrior, ViewpointNet, ColorHandPose3D, PosePriorNetwork) -> the
+    state_dict of the port's twin in ``models.hand3d``: the TF scope names
+    carry over (``conv1_1.conv.weight``, ``PosePrior.fc_rel0.weight``),
+    conv kernels HWIO -> OIHW, Dense kernels [in, out] -> [out, in]."""
+    return _named_tree({"params": params})
 
 
 def resnet_generator_state_dict_from_jax(variables: dict, *,

@@ -10,7 +10,13 @@ For each ratio r in the sweep:
   3. train the HPE on the real/synthetic mixture
      (``mmhand_torch.scripts.train_hpe``);
   4. evaluate EPE and PCK-AUC on the test set
-     (``mmhand_torch.scripts.test_hpe``).
+     (``mmhand_torch.scripts.test_hpe``);
+  5. with ``--with_hand3d``, below ratio 1.0, the second judge: pack the
+     generated images into a hand3d GAN DB
+     (``mmhand_torch.scripts.create_hand3d_db``), fine-tune ColorHandPose3D's
+     posenet on it for --hand3d_iters iterations
+     (``mmhand_torch.scripts.train_hand3d``) and score it
+     (``mmhand_torch.scripts.eval_hand3d --mode 2d``).
 
     python -m mmhand_torch.scripts.mm_train_ratio --dataset RHD \\
         --dataroot /data/rhd_crop --test_dataroot /data/rhd_crop_test \\
@@ -28,7 +34,9 @@ mmhand_tpu's driver cannot pass a flag there at all):
     python -m mmhand_torch.scripts.mm_train_ratio ... \
         --extra_gan_args --fineSize 128 --ngf 32 --extra_hpe_args --fineSize 128
 
-``--with_hand3d`` (the hand3d second judge) is not ported yet and raises.
+The hand3d stages take the GAN's --fineSize from --extra_gan_args (256
+by default), the side of the images aug writes, as their image and crop
+size.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+from mmhand_torch.config import Config
 from mmhand_torch.hpe.data import augmentation_dir_for
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -57,6 +66,14 @@ def split_extras(argv: list) -> tuple[list, dict]:
         else:
             extras[current].append(arg)
     return rest, extras
+
+
+def fine_size(gan_extra: list) -> int:
+    """The GAN's --fineSize among ``gan_extra``, else Config()'s."""
+    size = argparse.ArgumentParser(add_help=False)
+    size.add_argument("--fineSize", type=int,
+                      default=Config().model.fine_size)
+    return size.parse_known_args(gan_extra)[0].fineSize
 
 
 def run(stage: str, args: list) -> None:
@@ -82,18 +99,21 @@ def main(argv=None) -> None:
     parser.add_argument("--device", default="cuda",
                         help="torch device of every stage")
     parser.add_argument("--with_hand3d", action="store_true",
-                        help="also fine-tune and evaluate the hand3d posenet "
-                             "on the generated data (not ported yet)")
+                        help="also fine-tune and evaluate the hand3d "
+                             "posenet on the generated data through the "
+                             "packed binary GAN DB (the reference's second "
+                             "judge: hand3d training_posenet.py on "
+                             "BinaryDbReader_gan)")
+    parser.add_argument("--hand3d_iters", type=int, default=30000)
     # --extra_gan_args and --extra_hpe_args (the module's docstring) are
     # taken out before argparse sees the rest
     rest, extras = split_extras(sys.argv[1:] if argv is None else argv)
     args = parser.parse_args(rest)
     gan_extra, hpe_extra = (extras[flag] for flag in EXTRAS)
-    if args.with_hand3d:
-        raise NotImplementedError(
-            "--with_hand3d needs the hand3d stack (ColorHandPose3D, its "
-            "trainer and the packed GAN DB scripts), which mmhand_torch "
-            "does not port yet (ROADMAP section 1, item 5)")
+    if args.with_hand3d and args.hand3d_iters < 1:
+        raise ValueError(f"--hand3d_iters must be at least 1, got "
+                         f"{args.hand3d_iters}")
+    size = str(fine_size(gan_extra))
 
     ds, device = args.dataset, ["--device", args.device]
     for ratio in args.ratios:
@@ -134,6 +154,22 @@ def main(argv=None) -> None:
                          "--name", hpe_name,
                          "--checkpoints_dir", args.checkpoints_dir,
                          *device, *hpe_extra])
+
+        # 5. the second judge: the hand3d posenet fine-tuned on the
+        # generated images (reference hand3d training_posenet.py fed by
+        # create_GAN_DB's output through BinaryDbReader_gan)
+        if args.with_hand3d and ratio < 1.0:
+            db = str(Path(args.checkpoints_dir) / f"gan_db_{tag}.bin")
+            h3d = ["--bin", db, "--name", f"h3d_{tag}",
+                   "--image_size", size, "--crop_size", size,
+                   "--checkpoints_dir", args.checkpoints_dir, *device]
+            run("create_hand3d_db", [
+                "--dataroot", args.dataroot,
+                "--images", augmentation_dir_for(args.dataroot, args.method),
+                "--out", db])
+            run("train_hand3d", ["--net", "posenet",
+                                 "--max_iter", str(args.hand3d_iters), *h3d])
+            run("eval_hand3d", ["--mode", "2d", *h3d])
 
 
 if __name__ == "__main__":

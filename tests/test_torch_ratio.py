@@ -9,7 +9,10 @@ parse); the HPE stages at 32 px on the first 4 items, one epoch of 2 steps
 (``test_hpe`` accepts no --max_steps either, so the cut is
 --max_dataset_size 4 and --hpe_epochs 1), saving its 0.9 GB state once
 (--save_epoch_freq 10).  ``aug`` must load the ngf-8
-generator, so the run exits 0 only if --extra_gan_args reached it.
+generator, so the run exits 0 only if --extra_gan_args reached it.  With
+--with_hand3d, ratio 0.5 also packs the 4 generated images into a hand3d GAN
+DB, trains posenet on it for 2 iterations at the GAN's 32 px and scores it
+(eval_hand3d --mode 2d).
 """
 
 import math
@@ -43,6 +46,7 @@ def study(tmp_path_factory):
             "--ratios", *map(str, RATIOS), "--batchSize", "2",
             "--niter", "1", "--hpe_epochs", "1", "--device", "cpu",
             "--checkpoints_dir", str(root / "ckpt"),
+            "--with_hand3d", "--hand3d_iters", "2",
             "--extra_gan_args", "--fineSize", str(SIZE), "--ngf", "8",
             "--ndf", "8", "--niter_decay", "0",
             "--extra_hpe_args", "--fineSize", str(SIZE),
@@ -64,16 +68,22 @@ def _stages(out: str) -> list[tuple[str, list[str]]]:
 
 
 def test_every_stage_ran_on_the_device_asked_for(study):
-    """train, aug (ratio 0.5 only), train_hpe and test_hpe per ratio, each
-    with --device cpu; the GAN flags reach aug, the HPE flags both HPE
-    stages."""
+    """train, aug (ratio 0.5 only), train_hpe and test_hpe per ratio, and
+    at ratio 0.5 the three hand3d stages, each with --device cpu but the DB
+    writer; the GAN flags reach aug, the HPE flags both HPE stages, the
+    GAN's --fineSize the hand3d stages."""
     stages = _stages(study[1])
-    assert [s for s, _ in stages] == ["train", "aug", "train_hpe", "test_hpe",
-                                      "train", "train_hpe", "test_hpe"]
+    assert [s for s, _ in stages] == [
+        "train", "aug", "train_hpe", "test_hpe", "create_hand3d_db",
+        "train_hand3d", "eval_hand3d", "train", "train_hpe", "test_hpe"]
     for stage, args in stages:
+        if stage == "create_hand3d_db":
+            continue
         assert args[args.index("--device") + 1] == "cpu", stage
         if stage in ("train", "aug"):
             assert args[args.index("--ngf") + 1] == "8", stage
+        elif stage in ("train_hand3d", "eval_hand3d"):
+            assert args[args.index("--image_size") + 1] == str(SIZE), stage
         else:
             assert args[args.index("--max_dataset_size") + 1] == "4", stage
     assert study[1].count("done: 2 steps") == 3  # GAN at 0.5, both HPEs
@@ -116,11 +126,29 @@ def test_test_hpe_printed_finite_scores(study, ratio):
     assert all(0.0 <= float(v) <= 1.0 for k, v in scores if k == "auc")
 
 
+def test_hand3d_judge_trained_on_the_generated_images(study):
+    """The GAN DB holds the 4 generated images; posenet's loss on them is
+    above 0 (their keypoints are visible: the repaired hand side); the 2d
+    EPE and AUC are finite."""
+    out = study[1]
+    assert re.search(r"^wrote 4 records to \S+gan_db_rhd_r0p5\.bin", out,
+                     re.M)
+    losses = re.findall(r"^Training finished after 2 iterations; final loss "
+                        r"(\S+)$", out, re.M)
+    assert len(losses) == 1 and float(losses[0]) > 0
+    scores = re.findall(r"^(Average mean EPE|Average median EPE|Area under "
+                        r"curve): ([^ \n]+)", out, re.M)
+    assert [k for k, _ in scores] == ["Average mean EPE",
+                                      "Average median EPE", "Area under curve"]
+    assert all(math.isfinite(float(v)) for _, v in scores), scores
+
+
 def test_with_hand3d_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 5"):
+    """--with_hand3d refuses a --hand3d_iters below 1 before any stage."""
+    with pytest.raises(ValueError, match="hand3d_iters"):
         mm_train_ratio.main(["--dataset", "RHD", "--dataroot", str(tmp_path),
                              "--test_dataroot", str(tmp_path),
-                             "--with_hand3d"])
+                             "--with_hand3d", "--hand3d_iters", "0"])
 
 
 @pytest.mark.parametrize("argv,rest,gan,hpe", [
