@@ -126,6 +126,23 @@ baseline zoo:
     ``run_hand3d`` on two crops and ``handpose_judge`` with both judges.
     The hand3d nets hold no BatchNorm and no kernel of the port: their
     paths launch none.
+21. The MSRA/V2V group: an MSRA15-layout tree (16 frames of 320x240, a
+    hand near 350 mm) through ``MSRAHandDataset`` and ``voxel_sample``;
+    ``V2VVoxelization`` (64^3, cube 200 mm, augmentation) on 8 samples on
+    the card against the CPU with the same draws (coordinates within 1e-4
+    voxel, cubes equal but for voxels on a voxel edge or a bone's
+    boundary, counted); VoxelGenerator, VoxelDiscriminator, DepthGenerator
+    and DepthDiscriminator card against CPU in float32 with TF32 off at
+    16^3, 64^3, batch 4 and 256 px (outputs, gradients but those of the
+    conv biases before a BatchNorm, running statistics); one train
+    step of each at full width (batch 8 on 64^3, batch 32, batch 8 at 256
+    px; f32, cuDNN defaults): finite losses, every tensor moved, K2 and
+    K2b once per BatchNorm (43 in all), each held against its plain
+    version on every input; K2 and K2b timed at the C=1 and C=21 sites
+    and the largest 5-D one beside their bounds and
+    ``torch.batch_norm_stats``; a profiled VoxelGenerator step; and
+    ``knn_pose_distance`` (k 25) over 76,375 random poses on the card
+    against the CPU, timed per query.
 
 The kernels' JSON line gives each kernel's ``max_rel_err`` beside its
 ``max_abs_err`` where an absolute error alone misleads: K2's sums of
@@ -209,6 +226,16 @@ POSE = dict(size=50, batch=32, cpu_batch=2, bn_sites=56)
 # the hand3d stack: the scripts' 256 px, crop 256 and batch 8, float32
 # (mmhand_tpu's dtype), 6 train steps per subnet; card against CPU at 64 px
 HAND3D = dict(size=256, crop=256, batch=8, steps=6, check_size=64)
+# the MSRA/V2V group: 16 MSRA-layout frames, 8 of them voxelized at 64^3
+# (cube 200 mm) with augmentation; the nets at their fixed widths,
+# VoxelGenerator and VoxelDiscriminator at batch 8 on 64^3, DepthGenerator
+# at batch 32, DepthDiscriminator at batch 8 on 256x256; card against CPU at
+# 16^3 (VoxelGenerator); the pose search over MSRA15's 76,375 frames, k 25
+MSRA = dict(frames=16, samples=8, cubic=200.0, depth_g_batch=32,
+            depth_d_batch=8, check_side=16, poses=76375, k=25)
+# the four nets' train-mode BatchNorms: 31 + 4 + 5 + 3
+MSRA_BN_SITES = {"VoxelGenerator": 31, "VoxelDiscriminator": 4,
+                 "DepthGenerator": 5, "DepthDiscriminator": 3}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM
 F32_FLOPS = 67e12           # H100 SXM, outside the tensor cores
 BF16_FLOPS = 989e12         # H100 SXM, dense bf16 on the tensor cores
@@ -453,7 +480,8 @@ def bn_errors(x, g1, g2):
     s1, s2 = bn_sums(x)
     torch.cuda.synchronize()
     r1, r2 = bn_sums_ref(x)
-    scale1 = x.float().abs().sum((0, 2, 3)).clamp_min(1e-30)
+    axes = (0,) + tuple(range(2, x.dim()))
+    scale1 = x.float().abs().sum(axes).clamp_min(1e-30)
     rel1 = float(((s1 - r1).abs() / scale1).max())
     rel2 = float(((s2 - r2).abs() / r2.clamp_min(1e-30)).max())
     err = max(float((s1 - r1).abs().max()), float((s2 - r2).abs().max()))
@@ -3024,6 +3052,329 @@ def hand3d_demo_phase(tmp: Path, crops: Path) -> dict:
     return total
 
 
+# ------------------------------------------------------------ MSRA and V2V
+
+def _msra_nets(gen):
+    """The four nets at their fixed widths, lecun-normal weights from
+    ``gen`` (mmhand_tpu's flax init)."""
+    from mmhand_torch.models import voxel_nets
+    from mmhand_torch.models.layers import init_lecun_normal
+
+    return {name: init_lecun_normal(getattr(voxel_nets, name)(), gen)
+            for name in MSRA_BN_SITES}
+
+
+def _layout(name: str):
+    import torch
+
+    return (torch.channels_last_3d if name.startswith("Voxel")
+            else torch.channels_last)
+
+
+def msra_v2v_phase(tmp: Path) -> dict:
+    """The MSRA/V2V group: an MSRA-layout tree read by MSRAHandDataset and
+    voxel_sample; V2VVoxelization on the card against the CPU with the same
+    draws; the four nets card against CPU (float32, TF32 off) at small
+    size; one train-mode step of each at full width (K2 and K2b once per
+    BatchNorm, 43 in all, held against their plain versions on every
+    input); K2 and K2b timed at the C=1 sites and the largest 5-D one; the
+    pose search over 76,375 poses on the card against the CPU.  Returns
+    the kernels' launches in the train steps."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from mmhand_torch.data.msra import MSRAHandDataset, voxel_sample
+    from mmhand_torch.data.raw_sources import write_raw_msra
+    from mmhand_torch.eval.pose_search import knn_pose_distance
+    from mmhand_torch.models.check_nets import (
+        KINK_MARGIN,
+        biases_before_batchnorm,
+        bone_boundary,
+        edge_voxels,
+        gradients_off,
+        kink_decisions,
+    )
+    from mmhand_torch.models.layers import BatchNorm2d, BatchNorm3d
+    from mmhand_torch.ops.bn_stats import (
+        bn_sums,
+        bn_sums_backward,
+        bn_sums_backward_ref,
+        bn_sums_ref,
+    )
+    from mmhand_torch.ops.voxelize import V2VVoxelization, generate_coord
+
+    # 1. the data
+    start = time.perf_counter()
+    write_raw_msra(tmp / "msra", MSRA["frames"], seed=SEED)
+    dataset = MSRAHandDataset(str(tmp / "msra"))
+    check(len(dataset) == MSRA["frames"], f"{len(dataset)} MSRA frames")
+    items = [dataset[i] for i in range(MSRA["samples"])]
+    samples = [voxel_sample(item) for item in items]
+    points = [int((s["points"][:, 2] < 1e9).sum()) for s in samples]
+    check(all(0 < n < 32768 for n in points), f"hand points {points}")
+    print(f"MSRA: {len(dataset)} frames of 320x240 read, {len(samples)} "
+          f"voxel samples of {min(points)}-{max(points)} hand points "
+          f"(padded to 32768) in {time.perf_counter() - start:.3f} s")
+
+    # 2. V2VVoxelization on the card against the CPU, the same draws
+    size = 64
+    on_card = V2VVoxelization(MSRA["cubic"], True,
+                              np.random.RandomState(SEED), "cuda")
+    on_cpu = V2VVoxelization(MSRA["cubic"], True,
+                             np.random.RandomState(SEED), "cpu")
+    got, edge_in, edge_hand, coord_err = [], 0, 0, 0.0
+    for sample in samples:
+        state = on_cpu.rng.get_state()
+        card_out = on_card(sample)
+        want = on_cpu(sample)
+        got.append(card_out)
+        coord_err = max(coord_err, float((card_out[1].cpu() - want[1]).abs()
+                                         .max()))
+        peek = np.random.RandomState()
+        peek.set_state(state)
+        draws = V2VVoxelization(MSRA["cubic"], True, peek, "cpu")._draws()
+        point_coord = generate_coord(torch.from_numpy(sample["points"]),
+                                     sample["refpoint"], *draws,
+                                     on_cpu.sizes).numpy()
+        differ = (card_out[0].cpu() != want[0])[0].numpy()
+        check(not (differ & ~edge_voxels(point_coord, size, 1e-4)).any(),
+              "V2V input cube: a voxel differs off any voxel edge")
+        hand_differ = (card_out[2].cpu() != want[2])[0].numpy()
+        boundary = (bone_boundary(want[1].numpy(), size, 1e-5)
+                    | edge_voxels(want[1].numpy(), size, 1e-4))
+        check(not (hand_differ & ~boundary).any(),
+              "V2V hand cube: a voxel differs off any boundary")
+        edge_in += int(differ.sum())
+        edge_hand += int(hand_differ.sum())
+    check(coord_err <= 1e-4, f"V2V keypoint coordinates differ by {coord_err}")
+    torch.cuda.synchronize()
+    v2v_ms = cuda_ms(lambda: on_card(samples[0]), iters=10, warmup=2)
+    inputs = torch.cat([g[0] for g in got])[..., None]    # (8, 64, 64, 64, 1)
+    hands = torch.cat([g[2] for g in got])[..., None]
+    print(f"V2VVoxelization at {size}^3 with augmentation, card against the "
+          f"CPU with the same draws: keypoint coordinates within "
+          f"{coord_err:.3e} voxel; {edge_in} input and {edge_hand} hand "
+          f"voxels differ, each on a voxel edge or a bone's boundary; one "
+          f"sample {v2v_ms:.3f} ms (CUDA events)")
+
+    # 3. the four nets, card against CPU in float32 and float64, TF32 off
+    rng = np.random.RandomState(SEED)
+    gen = torch.Generator().manual_seed(SEED)
+    side = MSRA["check_side"]
+    # the discriminator at 64^3, where its last BatchNorm sees 27 values
+    # per sample (1 at 16^3)
+    small = {"VoxelGenerator": (2, side, side, side, 1),
+             "VoxelDiscriminator": (2, 64, 64, 64, 2),
+             "DepthGenerator": (4, 42), "DepthDiscriminator": (2, 256, 256, 1)}
+    for name, net in _msra_nets(gen).items():
+        with torch.no_grad():
+            for m in net.modules():
+                if isinstance(m, (BatchNorm2d, BatchNorm3d)):
+                    m.weight.normal_(1.0, 0.1, generator=gen)
+                    m.bias.normal_(0.0, 0.1, generator=gen)
+        net.train()
+        card = copy.deepcopy(net).to(device="cuda",
+                                     memory_format=_layout(name))
+        f64 = copy.deepcopy(net).double()
+        x = torch.from_numpy(rng.uniform(-1, 1, small[name]).astype(
+            np.float32))
+
+        def loss(outs):
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            return sum((o * torch.linspace(-1, 1, o.numel(), device=o.device,
+                                           dtype=o.dtype).view(o.shape)).sum()
+                       for o in outs), outs
+
+        decisions, margins = [], []
+        with tf32_off():
+            with kink_decisions(record=decisions):
+                got_loss, got_out = loss(card(x.cuda()))
+            got_loss.backward()
+
+        def replayed(model, inp):
+            replay = iter(decisions)
+            with kink_decisions(replay=replay, margins=margins):
+                total, outs = loss(model(inp))
+            total.backward()
+            check(bool(decisions) and next(replay, None) is None,
+                  f"{name}: {len(decisions)} decisions not all replayed")
+            return outs
+
+        # the CPU in float32 and in float64, each replaying the card's
+        # (Leaky)ReLU and pool decisions
+        want_out = replayed(net, x)
+        replayed(f64, x.double())
+        flipped = sum(m[1] for m in margins)
+        margin = max(m[2] for m in margins)
+        out_err = max(float((g.detach().cpu() - w.detach()).abs().max()
+                            / w.detach().abs().max())
+                      for g, w in zip(got_out, want_out))
+        off, gap, e_cpu = gradients_off(f64, net, card)
+        a = card.state_dict()
+        stats_err = max(float((a[k].cpu() - v).abs().max())
+                        for k, v in net.state_dict().items() if "running" in k)
+        check(out_err <= 1e-4 and not off and stats_err <= 1e-5
+              and margin <= KINK_MARGIN,
+              f"{name} card against CPU: output {out_err}, gradients "
+              f"beyond 1e-4 + 4x the CPU's own error at {off}, running "
+              f"statistics {stats_err}, replayed decisions off a pass's "
+              f"own by {margin}")
+        print(f"{name} at {small[name]}, TF32 off, one train-mode forward "
+              f"and backward, card (f32) against the CPU in f32 and f64, "
+              f"both replaying the card's {len(decisions)} (Leaky)ReLU and "
+              f"pool decisions ({flipped} elements decided apart, each "
+              f"within {margin:.3e} of its input's largest |x| from its "
+              f"kink): outputs within {out_err:.3e} of their largest value; "
+              f"gradients within {gap:.3e} of their norm of the CPU's f32, "
+              f"whose own error against f64 reaches {e_cpu:.3e}, each leaf "
+              f"within 1e-4 + 4x that error (but the "
+              f"{len(biases_before_batchnorm(net))} conv biases before a "
+              f"BatchNorm, 0 in exact arithmetic); running statistics "
+              f"within {stats_err:.3e}")
+
+    # 4-5. one full-width train step of each net (f32, cuDNN defaults)
+    batch = MSRA["samples"]
+    depth_uv = np.concatenate([np.stack([it["uv"] for it in items])] * 4)
+    full = {
+        "VoxelGenerator": inputs,
+        "VoxelDiscriminator": torch.cat([inputs, hands], dim=-1),
+        "DepthGenerator": torch.from_numpy(
+            (depth_uv.reshape(len(depth_uv), 42) / 160.0 - 1.0).astype(
+                np.float32))[:MSRA["depth_g_batch"]].cuda(),
+        "DepthDiscriminator": torch.rand(
+            MSRA["depth_d_batch"], 256, 256, 1, device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(SEED)) * 2 - 1,
+    }
+    total = {k: 0 for k in kernel_counters()}
+    sites = {}
+    for name, net in _msra_nets(gen).items():
+        net = net.to(device="cuda", memory_format=_layout(name)).train()
+        opt = torch.optim.Adam(net.parameters(), lr=2e-4, betas=(0.5, 0.999))
+        x = full[name]
+        target = hands * 2 - 1 if name == "VoxelGenerator" else None
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            out = net(x)
+            outs = out if isinstance(out, tuple) else (out,)
+            loss = ((out - target).abs().mean() if target is not None
+                    else sum(o.float().square().mean() for o in outs))
+            loss.backward()
+            opt.step()
+            return loss
+
+        before = {k: v.detach().clone() for k, v in net.state_dict().items()}
+        bn_inputs = []
+        hooks = [m.register_forward_pre_hook(
+            lambda mod, args: bn_inputs.append(args[0].detach()))
+            for m in net.modules() if isinstance(m, (BatchNorm2d, BatchNorm3d))]
+        counted = kernel_counters()
+        for f in counted.values():
+            f.launches = 0
+        loss_value = float(step())
+        torch.cuda.synchronize()
+        launches = {k: f.launches for k, f in counted.items()}
+        for h in hooks:
+            h.remove()
+        n_bn = MSRA_BN_SITES[name]
+        check(math.isfinite(loss_value), f"{name}: loss {loss_value}")
+        check(launches == {"gaussian_heatmaps": 0, "bn_sums": n_bn,
+                           "bn_sums_backward": n_bn, "generate_jointsmap": 0}
+              and len(bn_inputs) == n_bn,
+              f"{name}: launches {launches}, {len(bn_inputs)} inputs")
+        still = [k for k, v in net.state_dict().items()
+                 if not k.endswith("num_batches_tracked")
+                 and torch.equal(v, before[k])]
+        check(not still, f"{name}: {len(still)} tensors did not move: "
+              f"{still[:4]}")
+        for k, v in launches.items():
+            total[k] += v
+        step_ms = cuda_ms(step, iters=5, warmup=1)
+        n_params = sum(p.numel() for p in net.parameters())
+        print(f"{name} ({n_params} parameters) one train step at "
+              f"{tuple(x.shape)}, f32: loss {loss_value:.6f}, every tensor "
+              f"moved, launches {launches}; {step_ms:.3f} ms (CUDA events, "
+              f"median of 5)")
+        print(hold_bn_inputs(f"{name} at {tuple(x.shape)}", bn_inputs))
+        for t in bn_inputs:
+            if t.shape[1] in (1, 21) or (t.dim() == 5 and t.numel() > max(
+                    (u.numel() for u in sites.values() if u.dim() == 5),
+                    default=0)):
+                sites.setdefault(f"{name} {tuple(t.shape)}", t)
+        del net, opt, bn_inputs
+    check(total["bn_sums"] == total["bn_sums_backward"]
+          == sum(MSRA_BN_SITES.values()),
+          f"MSRA/V2V train launches {total}")
+
+    # 6. K2 and K2b at the C=1 and C=21 sites and the largest 5-D one
+    largest = max((t.numel() for t in sites.values() if t.dim() == 5))
+    for where, t in sites.items():
+        if t.shape[1] not in (1, 21) and t.numel() != largest:
+            continue
+        c = t.shape[1]
+        g1 = torch.randn(c, device="cuda")
+        g2 = torch.randn(c, device="cuda")
+        k2 = kernel_device_ms(lambda: bn_sums(t), K2_KERNELS)
+        k2b = kernel_device_ms(lambda: bn_sums_backward(t, g1, g2),
+                               K2B_KERNELS)
+        lib = kernel_device_ms(lambda: torch.batch_norm_stats(t, 1e-5),
+                               ("batch_norm",))
+        plain = cuda_ms(lambda: bn_sums_ref(t), iters=10)
+        plain_b = cuda_ms(lambda: bn_sums_backward_ref(t, g1, g2), iters=10)
+        nbytes = t.numel() * t.element_size()
+        k2_bound, _ = bound(nbytes + 2 * c * 4, 3 * t.numel())
+        k2b_bound, _ = bound(2 * nbytes + 2 * c * 4, 2 * t.numel())
+        print(f"K2 / K2b at {where} {t.dtype} ({nbytes / 1e6:.1f} MB): "
+              f"{k2:.4f} / {k2b:.4f} ms of device time (profiler), bound "
+              f"{k2_bound:.4f} / {k2b_bound:.4f} ms ({100 * k2_bound / k2:.1f}"
+              f"% / {100 * k2b_bound / k2b:.1f}%); torch.batch_norm_stats "
+              f"{lib:.4f} ms; plain {plain:.4f} / {plain_b:.4f} ms (CUDA "
+              f"events)")
+    vg = _msra_nets(gen)["VoxelGenerator"].to(
+        device="cuda", memory_format=torch.channels_last_3d).train()
+    vg_opt = torch.optim.Adam(vg.parameters(), lr=2e-4, betas=(0.5, 0.999))
+
+    def vg_step():
+        vg_opt.zero_grad(set_to_none=True)
+        (vg(inputs) - (hands * 2 - 1)).abs().mean().backward()
+        vg_opt.step()
+
+    report, _ = profile_step(vg_step, f"one VoxelGenerator train step at "
+                             f"{tuple(inputs.shape)}",
+                             {"K2": K2_KERNELS, "K2b": K2B_KERNELS})
+    print(report)
+    del vg, vg_opt
+
+    # 7. the pose search
+    prng = np.random.RandomState(SEED)
+    database = prng.normal(0, 40, (MSRA["poses"], 21, 3))
+    query = prng.normal(0, 40, (21, 3))
+    idx, dist = knn_pose_distance(query, database, MSRA["k"], device="cuda")
+    want_idx, want_dist = knn_pose_distance(query, database, MSRA["k"],
+                                            device="cpu")
+    dist_err = float(np.abs(dist - want_dist).max())
+    check(np.array_equal(idx, want_idx) and dist_err <= 1e-12,
+          f"pose search: indices {idx[:5]} against {want_idx[:5]}, "
+          f"distances within {dist_err}")
+    calls = 10
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(calls):
+        knn_pose_distance(query, database, MSRA["k"], device="cuda")
+    per_query = (time.perf_counter() - start) / calls * 1e3
+    start = time.perf_counter()
+    knn_pose_distance(query, database, MSRA["k"], device="cpu")
+    cpu_ms = (time.perf_counter() - start) * 1e3
+    print(f"knn_pose_distance, k {MSRA['k']} over {MSRA['poses']} poses "
+          f"(float64): on the card the CPU's indices, distances within "
+          f"{dist_err:.3e}; {per_query:.3f} ms per query on the card (host "
+          f"clock, the numpy bone vectors and the copy in), {cpu_ms:.3f} ms "
+          f"on the CPU")
+    return total
+
+
 def main() -> int:
     if not (ROOT / "mmhand_torch" / "__init__.py").exists():
         print("chip_smoke: mmhand_torch/ is not beside this script",
@@ -3083,6 +3434,7 @@ def main() -> int:
         paths["hand3d train"] = hand3d_train_phase(tmp)
         paths["hand3d DB and evaluation"] = hand3d_eval_phase(tmp, crops)
         paths["hand3d demos"] = hand3d_demo_phase(tmp, crops)
+        paths["MSRA/V2V train"] = msra_v2v_phase(tmp)
     # K1 runs on every path that renders heatmaps, K2 and K2b on the train
     # paths, K3 on the baselines' evaluation path and the pix2pixhd export
     for rec, name in ((k1, "gaussian_heatmaps"), (k2, "bn_sums"),

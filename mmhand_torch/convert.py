@@ -15,6 +15,11 @@ which no tool converts to the port:
   batchnorm   scale/bias -> weight/bias; batch_stats mean/var ->
               running_mean/running_var
 
+The depth and voxel GAN nets (``models.voxel_nets``) name their modules
+with the reference's torch keys, and mmhand_tpu names each flax module by
+the same key with '.' -> '_' (``mmhand_tpu/models/voxel_nets.py``
+``load_*_state_dict``), so their maps walk the port's own module tree.
+
 The Sequential indices follow ``models.generator``: a stem is
 [pad, conv, bn, relu] then [conv, bn, relu] per downsampling; a PATBlock
 stream is [pad?, conv, bn, relu, dropout?, pad?, conv, bn?]; the up path is
@@ -31,6 +36,7 @@ from collections.abc import Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def _tensor(a) -> torch.Tensor:
@@ -40,18 +46,30 @@ def _tensor(a) -> torch.Tensor:
 
 
 def _conv(p: dict) -> dict:
-    out = {"weight": _tensor(np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1)))}
+    """HWIO (DHWIO) -> OIHW (OIDHW)."""
+    k = np.asarray(p["kernel"])
+    out = {"weight": _tensor(np.transpose(
+        k, (k.ndim - 1, k.ndim - 2) + tuple(range(k.ndim - 2))))}
     if "bias" in p:
         out["bias"] = _tensor(p["bias"])
     return out
 
 
 def _convt(p: dict) -> dict:
-    w = np.transpose(np.asarray(p["kernel"]), (2, 3, 0, 1))[:, :, ::-1, ::-1]
-    out = {"weight": _tensor(w)}
+    """(*spatial, I, O) -> (I, O, *spatial), every spatial axis flipped."""
+    k = np.asarray(p["kernel"])
+    spatial = k.ndim - 2
+    w = np.transpose(k, (spatial, spatial + 1) + tuple(range(spatial)))
+    out = {"weight": _tensor(w[(slice(None),) * 2 + (slice(None, None, -1),)
+                               * spatial])}
     if "bias" in p:
         out["bias"] = _tensor(p["bias"])
     return out
+
+
+def _dense(p: dict) -> dict:
+    return {"weight": _tensor(np.asarray(p["kernel"]).T),
+            "bias": _tensor(p["bias"])}
 
 
 def _bn(params: dict, stats: dict) -> dict:
@@ -355,3 +373,76 @@ def pose_resnet_state_dict_from_jax(variables: dict
         i += 1
     put("final_layer", _conv(params["final_layer"]))
     return b.sd
+
+
+def _from_module_tree(variables: dict, net: nn.Module,
+                      strip: str = "") -> dict[str, torch.Tensor]:
+    """``{"params", "batch_stats"}`` whose flax names are the torch module
+    names of ``net`` (a skeleton on the meta device) with '.' -> '_' and
+    ``strip`` removed from the front -> ``net``'s state_dict: conv kernels
+    (D)HWIO -> OI(D)HW, conv-transpose kernels flipped to (I, O, ...),
+    Dense [in, out] -> [out, in], BatchNorm scale/bias and mean/var."""
+    b = _Converted(variables)
+    for name, m in net.named_modules():
+        flax = name.removeprefix(strip).replace(".", "_")
+        if isinstance(m, (nn.ConvTranspose2d, nn.ConvTranspose3d)):
+            b.put(name, _convt(b.params[flax]))
+        elif isinstance(m, (nn.Conv2d, nn.Conv3d)):
+            b.put(name, _conv(b.params[flax]))
+        elif isinstance(m, nn.Linear):
+            b.put(name, _dense(b.params[flax]))
+        elif isinstance(m, nn.modules.batchnorm._BatchNorm):
+            b.put(name, b.bn(flax))
+    return b.sd
+
+
+def _skeleton(cls, **kwargs) -> nn.Module:
+    """``cls`` on the meta device: its module names and types, no
+    weights."""
+    with torch.device("meta"):
+        return cls(**kwargs)
+
+
+def depth_generator_state_dict_from_jax(variables: dict
+                                        ) -> dict[str, torch.Tensor]:
+    """``{"params", "batch_stats"}`` of a mmhand_tpu DepthGenerator ->
+    state_dict of ``models.voxel_nets.DepthGenerator`` (``linear``,
+    ``models.<i>.0`` conv-transpose, ``models.<i>.1`` BatchNorm)."""
+    from mmhand_torch.models.voxel_nets import DepthGenerator
+
+    n_layer = sum(1 for k in variables["params"] if k.startswith("models_")
+                  and k.endswith("_0"))
+    return _from_module_tree(variables,
+                             _skeleton(DepthGenerator, n_layer=n_layer))
+
+
+def depth_discriminator_state_dict_from_jax(variables: dict
+                                            ) -> dict[str, torch.Tensor]:
+    """``{"params", "batch_stats"}`` of a mmhand_tpu DepthDiscriminator ->
+    state_dict of ``models.voxel_nets.DepthDiscriminator`` (``encoder.0``,
+    ``predictor.2``, ``hard_predictor.5`` ...)."""
+    from mmhand_torch.models.voxel_nets import DepthDiscriminator
+
+    return _from_module_tree(variables, _skeleton(DepthDiscriminator))
+
+
+def voxel_generator_state_dict_from_jax(variables: dict
+                                        ) -> dict[str, torch.Tensor]:
+    """``{"params", "batch_stats"}`` of a mmhand_tpu VoxelGenerator ->
+    state_dict of ``models.voxel_nets.VoxelGenerator``
+    (``front_layers.0.block.0``, ``encoder_decoder.skip_res1.res_branch.0``
+    ...)."""
+    from mmhand_torch.models.voxel_nets import VoxelGenerator
+
+    return _from_module_tree(variables, _skeleton(VoxelGenerator))
+
+
+def voxel_discriminator_state_dict_from_jax(variables: dict
+                                            ) -> dict[str, torch.Tensor]:
+    """``{"params", "batch_stats"}`` of a mmhand_tpu VoxelDiscriminator ->
+    state_dict of ``models.voxel_nets.VoxelDiscriminator``, whose blocks
+    are ``models.models.<i>`` (mmhand_tpu's ``models_<i>``)."""
+    from mmhand_torch.models.voxel_nets import VoxelDiscriminator
+
+    return _from_module_tree(variables, _skeleton(VoxelDiscriminator),
+                             strip="models.")

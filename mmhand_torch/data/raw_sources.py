@@ -12,6 +12,11 @@ after it without the real datasets.
   invisible keypoint on its right hand and every fourth from 2 one on its
   left (that hand is rejected), and every eighth from 7 has a mask of 1
   alone (both crops are dropped as false positives).
+* MSRA15: ``<subject>/<gesture>/joint.txt`` (the frame count, then per
+  frame 21 xyz in mm with y and z negated) and ``NNNNNN_depth.bin`` (the
+  320x240 frame's size, the hand's box, then its float32 depths; 0 is
+  background): a hand of 21 disks of 6 px, one per joint, at the joint's
+  depth, near 350 mm.
 * STB: ``labels/<seq>_{SK,BB}.mat`` holding ``handPara`` (3, 21, 1500) in
   mm, and per sequence ``SK_color_<i>.png``, ``BB_left_<i>.png`` and
   ``BB_right_<i>.png``, 640x480 RGB.  The hands lie where all three views
@@ -22,6 +27,7 @@ from __future__ import annotations
 
 import os
 import pickle
+import struct
 
 import numpy as np
 from PIL import Image
@@ -106,3 +112,43 @@ def write_raw_stb(root, frames: int, seed: int = 0,
                 _save(os.path.join(root, seq, f"{view}_{i}.png"),
                       rng.randint(0, 256, (480, 640, 3)).astype(np.uint8))
     return root
+
+
+def write_raw_msra(root, n_frames: int, seed: int = 0, subject: str = "P0",
+                   gesture: str = "1") -> str:
+    """An MSRA15-layout gesture directory of ``n_frames`` frames under
+    ``root``; returns its path.  The joints (camera frame, mm) spread +-60
+    mm about a centre 330-370 mm away."""
+    from mmhand_torch.data.msra import (
+        MSRA_IMG_HEIGHT,
+        MSRA_IMG_WIDTH,
+        world2pixel,
+    )
+
+    rng = np.random.RandomState(seed)
+    gdir = os.path.join(str(root), subject, gesture)
+    os.makedirs(gdir, exist_ok=True)
+    rows, cols = np.mgrid[:MSRA_IMG_HEIGHT, :MSRA_IMG_WIDTH]
+    lines = [str(n_frames)]
+    for i in range(n_frames):
+        centre = np.array([rng.uniform(-30, 30), rng.uniform(-30, 30),
+                           rng.uniform(330, 370)])
+        xyz = centre + rng.uniform(-60, 60, (21, 3)) * [1.0, 1.0, 0.5]
+        stored = xyz * [1.0, -1.0, -1.0]
+        lines.append(" ".join(f"{v:.6f}" for v in stored.ravel()))
+        depth = np.zeros((MSRA_IMG_HEIGHT, MSRA_IMG_WIDTH), np.float32)
+        px, py = world2pixel(xyz[:, 0], xyz[:, 1], xyz[:, 2])
+        # nearer joints drawn last, so they cover the farther ones
+        for j in np.argsort(-xyz[:, 2]):
+            disk = (cols - px[j]) ** 2 + (rows - py[j]) ** 2 <= 36
+            depth[disk] = xyz[j, 2]
+        ys, xs = np.nonzero(depth)
+        left, top = int(xs.min()), int(ys.min())
+        right, bottom = int(xs.max()) + 1, int(ys.max()) + 1
+        with open(os.path.join(gdir, f"{i:06d}_depth.bin"), "wb") as f:
+            f.write(struct.pack("I" * 6, MSRA_IMG_WIDTH, MSRA_IMG_HEIGHT,
+                                left, top, right, bottom))
+            f.write(depth[top:bottom, left:right].astype("<f4").tobytes())
+    with open(os.path.join(gdir, "joint.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return gdir

@@ -27,7 +27,6 @@ are averaged, as mmhand_tpu's ``pmean``.
 from __future__ import annotations
 
 import contextlib
-import math
 from typing import Optional
 
 import torch
@@ -36,6 +35,7 @@ from torch import nn
 
 from mmhand_torch.config import Config
 from mmhand_torch.models.cpm import Hpm2d, Hpm3d
+from mmhand_torch.models.layers import init_lecun_normal
 from mmhand_torch.parallel.sharding import all_reduce_grads, mean_metrics
 from mmhand_torch.train.state import (
     compute_dtype,
@@ -45,9 +45,6 @@ from mmhand_torch.train.state import (
 
 STAGE_LOSS_SCALE = 1000.0  # reference hpm_model.py:173
 VARIANTS = ("hpm", "hpm2d", "hpm3d")
-# flax's truncated normal draws within 2 standard deviations and divides
-# its scale by this, the standard deviation of N(0, 1) truncated there
-_TRUNC_STD = 0.87962566103423978
 
 
 def smooth_l1(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -62,25 +59,6 @@ def _masked_mean(per_sample: torch.Tensor, weight: torch.Tensor
     """Mean over the samples of weight 1 (the static-shape ``x[iw==1]``)."""
     w = weight.to(torch.float32)
     return (per_sample * w).sum() / torch.clamp(w.sum(), min=1.0)
-
-
-def init_lecun_normal(net: nn.Module, generator: torch.Generator
-                      ) -> nn.Module:
-    """flax's default init: every conv and linear kernel from a normal of
-    variance 1 / fan_in truncated at 2 standard deviations
-    (``lecun_normal``), every bias 0."""
-    # the inverse normal CDF of a uniform draw on [cdf(-2), cdf(2)], the
-    # algorithm of nn.init.trunc_normal_, which takes ~10x longer on the CPU
-    edge = math.erf(2.0 / math.sqrt(2.0))
-    with torch.no_grad():
-        for m in net.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
-                std = math.sqrt(1.0 / m.weight[0].numel()) / _TRUNC_STD
-                w = m.weight.uniform_(-edge, edge, generator=generator)
-                w.erfinv_().mul_(std * math.sqrt(2.0))
-                w.clamp_(-2 * std, 2 * std)
-                m.bias.zero_()
-    return net
 
 
 def _place(net: nn.Module, device) -> nn.Module:

@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mmhand_torch.models.layers import in_net_dtype
+
 # the trunk's convs: (name, width), 3x3 pad 1 each, a 2x2 max pool after
 # the last conv of blocks 1-3 (net_hpm2d.py:40-101)
 _TRUNK = (("conv1_1", 64), ("conv1_2", 64), "pool",
@@ -96,7 +98,7 @@ class Hpm2d(_CPMBase):
         super().__init__(3, num_joints)
 
     def forward(self, x):
-        x = x.to(torch.float32).permute(0, 3, 1, 2)
+        x = in_net_dtype(self, x).permute(0, 3, 1, 2)
         _, outputs = self.stages(x)
         return [F.interpolate(o, scale_factor=8, mode="bilinear",
                               align_corners=True).permute(0, 2, 3, 1)
@@ -116,11 +118,11 @@ class Hpm3d(_CPMBase):
         self.depth_fc_3 = nn.Linear(512, num_joints)
 
     def forward(self, x):
-        x = x.to(torch.float32).permute(0, 3, 1, 2)
+        x = in_net_dtype(self, x).permute(0, 3, 1, 2)
         feat, outputs = self.stages(x)
         out = self.depth(torch.cat([outputs[-1], feat], 1))
         # flatten in torch's CHW order (the reference's weight layout)
-        out = out.reshape(out.shape[0], -1).float()
+        out = in_net_dtype(self, out.reshape(out.shape[0], -1))
         # three Linear layers with NO activation between (reference quirk),
         # in float32 under autocast too, as mmhand_tpu's f32 Dense layers
         with torch.autocast(out.device.type, enabled=False):

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -45,17 +46,17 @@ class NormConfig:
         return self.kind == "instance"
 
 
-class BatchNorm2d(nn.BatchNorm2d):
+class _FlaxBatchNorm:
     """BatchNorm with eps 1e-5 and momentum 0.1 (flax momentum 0.9).
 
     Train mode normalizes with the f32 batch moments of ``ops.bn_moments``
-    (kernel K2 on a CUDA device), var = max(0, E[x^2] - E[x]^2) as flax's
+    (kernel K2 on a CUDA device; float64 for a float64 net on the CPU), var = max(0, E[x^2] - E[x]^2) as flax's
     fast variance and mmhand_tpu's ``_DotStatsBN`` (mmhand_tpu/models/
     layers.py:177-193), and folds the *biased* batch variance into
-    ``running_var``; torch's own BatchNorm2d folds the unbiased one.  While
+    ``running_var``; torch's own BatchNorm folds the unbiased one.  While
     ``update_running_stats`` is False (``frozen_running_stats``), train mode
     leaves the running statistics as they are.  Eval mode is torch's
-    BatchNorm2d over the running statistics.
+    BatchNorm over the running statistics.
 
     With ``cross_rank``, every train-mode forward averages the stacked
     (mean, mean of squares) over the ranks (a mean of moments, as
@@ -82,19 +83,37 @@ class BatchNorm2d(nn.BatchNorm2d):
                 self.running_mean.lerp_(mean, self.momentum)
                 self.running_var.lerp_(var, self.momentum)
                 self.num_batches_tracked += 1
+        shape = (-1,) + (1,) * (x.dim() - 2)
         scale = torch.rsqrt(var + self.eps) * self.weight
-        y = (x.float() - mean[:, None, None]) * scale[:, None, None]
-        return (y + self.bias[:, None, None]).to(x.dtype)
+        y = (x.to(mean.dtype) - mean.view(shape)) * scale.view(shape)
+        return (y + self.bias.view(shape)).to(x.dtype)
+
+
+class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
+    """The port's BatchNorm of (B, C, H, W) activations (``_FlaxBatchNorm``;
+    K2 and K2b take them in ``channels_last`` memory)."""
+
+
+class BatchNorm3d(_FlaxBatchNorm, nn.BatchNorm3d):
+    """The port's BatchNorm of (B, C, D, H, W) activations
+    (``_FlaxBatchNorm``; K2 and K2b take them in ``channels_last_3d``
+    memory), flax's ``nn.BatchNorm`` of the voxel nets."""
+
+
+def in_net_dtype(net: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``x`` in the type of ``net``'s parameters (float32, or float64 for a
+    float64 reference copy)."""
+    return x.to(next(net.parameters()).dtype)
 
 
 @contextlib.contextmanager
 def frozen_running_stats(*nets: nn.Module):
     """Train-mode forwards of ``nets`` inside the block keep their
-    BatchNorm2d running statistics unchanged, as the JAX step discards the
-    updates of the discriminator forwards in the G loss
+    BatchNorm2d and BatchNorm3d running statistics unchanged, as the JAX
+    step discards the updates of the discriminator forwards in the G loss
     (mmhand_tpu/train/step.py:224-236)."""
     bns = [m for net in nets for m in net.modules()
-           if isinstance(m, BatchNorm2d)]
+           if isinstance(m, _FlaxBatchNorm)]
     saved = [m.update_running_stats for m in bns]
     for m in bns:
         m.update_running_stats = False
@@ -170,6 +189,38 @@ def conv_norm_relu(in_features: int, features: int, kernel: int,
         conv = pad_conv(in_features, features, kernel, stride, pad,
                         pad_mode, use_bias=norm.use_bias)
     return [*conv, norm_layer(norm, features), nn.ReLU(True)]
+
+
+# flax's truncated normal draws within 2 standard deviations and divides
+# its scale by this, the standard deviation of N(0, 1) truncated there
+_TRUNC_STD = 0.87962566103423978
+_TRANSPOSED = (nn.ConvTranspose2d, nn.ConvTranspose3d)
+
+
+def init_lecun_normal(net: nn.Module, generator: torch.Generator
+                      ) -> nn.Module:
+    """flax's default init: every conv, conv-transpose and linear kernel
+    from a normal of variance 1 / fan_in truncated at 2 standard deviations
+    (``lecun_normal``; a conv-transpose's fan_in is in * taps, as its flax
+    kernel's), every bias 0."""
+    # the inverse normal CDF of a uniform draw on [cdf(-2), cdf(2)], the
+    # algorithm of nn.init.trunc_normal_, which takes ~10x longer on the CPU
+    edge = math.erf(2.0 / math.sqrt(2.0))
+    with torch.no_grad():
+        for m in net.modules():
+            if not isinstance(m, (nn.Conv2d, nn.Conv3d, nn.Linear)
+                              + _TRANSPOSED):
+                continue
+            w = m.weight
+            fan_in = (w.shape[0] * w[0, 0].numel()
+                      if isinstance(m, _TRANSPOSED) else w[0].numel())
+            std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+            w.uniform_(-edge, edge, generator=generator)
+            w.erfinv_().mul_(std * math.sqrt(2.0))
+            w.clamp_(-2 * std, 2 * std)
+            if m.bias is not None:
+                m.bias.zero_()
+    return net
 
 
 INIT_TYPES = ("normal", "xavier", "kaiming", "orthogonal")

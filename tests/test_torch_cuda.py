@@ -1,7 +1,8 @@
 """mmhand_torch's CUDA kernels against their plain versions, on the card.
 
-Every test here needs a CUDA device and skips without one.  The file imports
-no JAX, so it runs where only torch is installed:
+Every test here but one needs a CUDA device and skips without one (the
+exception checks on the CPU the Adam bound one of them uses).  The file
+imports no JAX, so it runs where only torch is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
@@ -9,6 +10,7 @@ no JAX, so it runs where only torch is installed:
 """
 
 import copy
+import functools
 
 import numpy as np
 import pytest
@@ -463,56 +465,160 @@ def test_evaluator_on_card_matches_cpu(cuda):
                                rtol=1e-4, atol=1e-4 * 64)
 
 
+def adam_step_bound(t: int, beta1: float, beta2: float) -> float:
+    """The largest |m_hat / sqrt(v_hat)| Adam can take at step ``t`` (eps
+    0), over every gradient sequence: by Cauchy-Schwarz,
+    (1 - b1) / (1 - b1^t) * sqrt((1 - b2^t) / (1 - b2))
+    * sqrt(sum_i b1^(2 (t - i)) / b2^(t - i)).  1 at t = 1; 1.0539 at t = 2
+    for betas (0.5, 0.999)."""
+    s = sum(beta1 ** (2 * (t - i)) / beta2 ** (t - i) for i in range(1, t + 1))
+    return ((1 - beta1) / (1 - beta1 ** t)
+            * ((1 - beta2 ** t) / (1 - beta2)) ** 0.5 * s ** 0.5)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["hpm", "hpm3d"])
-def test_hpe_step_on_card_matches_cpu(cuda, variant):
+def test_hpe_step_on_card_matches_cpu(cuda, variant, record_property):
     """Two HPE steps at 32 px from the same weights and batches, f32 with
     TF32 off, the sigma-5 heatmaps rendered by K1 on the card: K1 once per
-    batch, losses within tests/test_torch_hpe.py's 2e-4, parameters as that
-    file holds them against JAX."""
+    batch, losses within tests/test_torch_hpe.py's 2e-4.
+
+    Each step on the CPU replays the card's ReLU and max-pool decisions
+    (``kink_decisions``): where a ReLU input lies within rounding of 0 on
+    one side, every gradient below it moves (on an H100 by up to 4.9e-2 of
+    a norm, PYTHONHASHSEED 3), and both are valid subgradients.  So do two
+    copies of the card's nets as the step starts, on the CPU in float32
+    and float64: from the same weights, every Hpm2d and Hpm3d gradient of
+    the card within 1e-4 of the float32 copy's (the norm of the difference
+    against the leaf's norm), plus 4x that copy's own error against
+    float64 (``gradients_off``).  (From the CPU's own weights after a first
+    step, Hpm3d's gradients of 1e-7 in its last stage part by up to 1e-4
+    of a norm on an H100, PYTHONHASHSEED 7: Adam's first step moved the
+    two sides' weights apart by up to 3e-7.)  Every replayed decision that
+    differs from a pass's own lies within ``KINK_MARGIN`` of the input's
+    largest |x|.  After the two
+    steps, at most 0.5% of each net's parameters more than 2e-5 + 1e-3 |w|
+    apart (Adam moves a parameter whose gradient is at rounding level by
+    a whole step, either way), and none beyond the most two Adam runs from
+    one start can part, 2 lr (1 + 1.0539) at betas (0.5, 0.999)
+    (``adam_step_bound``)."""
     from mmhand_torch.hpe import (
         HPEMixDataset,
         HPESystem,
         make_hpe_prepare_batch,
         make_hpe_train_step,
     )
+    from mmhand_torch.models.check_nets import (
+        KINK_MARGIN,
+        gradients_off,
+        kink_decisions,
+    )
 
+    lr, steps = 2e-4, 2
     cfg = Config(model=ModelConfig(fine_size=32),
                  data=DataConfig(dataset="synthetic"),
                  precision=PrecisionConfig(compute_dtype="float32"))
     on_cpu = HPESystem(cfg, variant, "cpu")
     on_card = HPESystem(cfg, variant, cuda)
+    nets = [n for n in ("hpm2d", "hpm3d") if getattr(on_cpu, n) is not None]
+    for n in nets:
+        b = getattr(on_cpu, n).state_dict()
+        for k, v in getattr(on_card, n).state_dict().items():
+            assert torch.equal(v.cpu(), b[k]), f"{n}.{k} starts apart"
     dataset = HPEMixDataset(cfg, length_for_synthetic=8)
     saved = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
-        for i in range(2):
+        for i in range(steps):
             raw = dataset.batch(range(3 * i, 3 * i + 3))
             raw["weight"] = np.array([1, 1 - i, 1], np.int32)
             before = gaussian_heatmaps.launches
             batch = make_hpe_prepare_batch(device=cuda)(raw)
             assert gaussian_heatmaps.launches == before + 1
-            want = make_hpe_train_step(on_cpu)(
-                make_hpe_prepare_batch(device="cpu")(raw), 2e-4)
-            got = make_hpe_train_step(on_card)(batch, 2e-4)
+            # copies of the card's nets as the step starts, on the CPU in
+            # float32 and in float64, for its gradients; their optimizer's
+            # update is never read
+            ref, exact = copy.deepcopy(on_cpu), copy.deepcopy(on_cpu)
+            for name in nets:
+                for system, dtype in ((ref, torch.float32),
+                                      (exact, torch.float64)):
+                    net = getattr(system, name)
+                    net.load_state_dict(getattr(on_card, name).state_dict())
+                    setattr(system, f"opt{name[3:]}", torch.optim.SGD(
+                        net.to(dtype).parameters(), lr=0.0))
+            cpu_batch = make_hpe_prepare_batch(device="cpu")(raw)
+            decisions, margins = [], []
+            with kink_decisions(record=decisions):
+                got = make_hpe_train_step(on_card)(batch, lr)
+
+            def replayed(system, b):
+                replay = iter(decisions)
+                with kink_decisions(replay=replay, margins=margins):
+                    out = make_hpe_train_step(system)(b, lr)
+                assert decisions and next(replay, None) is None
+                return out
+
+            want = replayed(on_cpu, cpu_batch)
+            replayed(ref, cpu_batch)
+            replayed(exact, {k: v.double() if v.is_floating_point() else v
+                             for k, v in cpu_batch.items()})
+            worst = max(margins, key=lambda m: m[2])
+            record_property(f"step{i}_decided_apart", sum(m[1] for m in margins))
+            record_property(f"step{i}_kink_margin", worst[2])
+            assert worst[2] <= KINK_MARGIN, f"step {i}: {worst}"
             assert set(got) == set(want)
             for k, v in want.items():
                 np.testing.assert_allclose(float(got[k]), float(v), rtol=2e-4,
                                            err_msg=k)
+            for name in nets:
+                off, gap, e_cpu = gradients_off(
+                    getattr(exact, name), getattr(ref, name),
+                    getattr(on_card, name))
+                record_property(f"step{i}_{name}_gradient_gap", gap)
+                record_property(f"step{i}_{name}_cpu_gradient_error", e_cpu)
+                assert not off, f"step {i} {name}: {off}"
     finally:
         torch.backends.cudnn.allow_tf32 = saved
-    for name in ("hpm2d", "hpm3d"):
-        if getattr(on_cpu, name) is None:
-            continue
+    f32_eps = torch.finfo(torch.float32).eps
+    moved = 2 * lr * sum(adam_step_bound(t, cfg.optim.beta1, cfg.optim.beta2)
+                         for t in range(1, steps + 1))
+    for name in nets:
         a = getattr(on_card, name).state_dict()
-        b = getattr(on_cpu, name).state_dict()
         outside = total = 0
-        for k, v in b.items():
+        largest = 0.0
+        for k, v in getattr(on_cpu, name).state_dict().items():
             diff = (a[k].cpu() - v).abs()
             outside += int((diff > 2e-5 + 1e-3 * v.abs()).sum())
             total += v.numel()
-            assert float(diff.max()) <= 2 * 2e-4 * 2, f"{name}.{k}"
+            largest = max(largest, float(diff.max()))
+            # and one rounding of each side's stored weight per step
+            bound = moved + steps * f32_eps * (v.abs() + moved)
+            assert bool((diff <= bound).all()), \
+                f"{name}.{k}: {float(diff.max())} against {moved}"
+        record_property(f"{name}_largest_parameter_gap", largest)
+        record_property(f"{name}_share_outside", outside / total)
         assert outside <= 0.005 * total, f"{name}: {outside} of {total}"
+
+
+def test_adam_step_bound_is_adams_largest_step():
+    """The bound against Adam itself: a gradient sequence in the ratio that
+    maximizes the second step (g2 = g1 * b2 / b1, Cauchy-Schwarz's
+    equality) reaches it, and random sequences stay under it."""
+    b1, b2 = 0.5, 0.999
+    assert adam_step_bound(1, b1, b2) == pytest.approx(1.0)
+    assert adam_step_bound(2, b1, b2) == pytest.approx(1.0539, abs=1e-4)
+    steps = []
+    for grads in ([1e-3, 1e-3 * b2 / b1], *np.random.RandomState(0).normal(
+            0, 1, (20, 2)).tolist()):
+        p = torch.zeros(1, dtype=torch.float64, requires_grad=True)
+        opt = torch.optim.Adam([p], lr=1.0, betas=(b1, b2), eps=0.0)
+        for t, g in enumerate(grads, 1):
+            p.grad = torch.tensor([float(g)], dtype=torch.float64)
+            before = float(p)
+            opt.step()
+            steps.append(abs(float(p) - before))
+            assert steps[-1] <= adam_step_bound(t, b1, b2) * (1 + 1e-12)
+    assert steps[1] == pytest.approx(adam_step_bound(2, b1, b2), rel=1e-12)
 
 
 @pytest.mark.cuda
@@ -622,3 +728,188 @@ def test_pose_resnet_train_bn_on_card_equals_plain(cuda):
         e_cpu = float((p.grad.double() - r.grad).norm()) / scale
         e_card = float((q.grad.cpu().double() - r.grad).norm()) / scale
         assert e_card <= 4 * e_cpu + 1e-6, (k, e_card, e_cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [1, 21, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_kernels_on_5d_input_match_plain(cuda, channels, dtype):
+    """K2 and K2b on a 5-D ``channels_last_3d`` tensor, the voxel nets'
+    layout, at the masked scalar path's widths (C 1 and 21) and a vector
+    one (16), held as ``test_bn_kernels_match_plain`` holds them; a 5-D
+    tensor in another layout raises."""
+    gen = torch.Generator(device=cuda).manual_seed(channels)
+    shape = (2, channels, 17, 20, 24)
+    x = (torch.randn(shape, generator=gen, device=cuda) * 1.5 + 0.3).to(
+        dtype).contiguous(memory_format=torch.channels_last_3d)
+    before = (bn_sums.launches, bn_sums_backward.launches)
+    s1, s2 = bn_sums(x)
+    g1 = torch.randn(channels, generator=gen, device=cuda)
+    g2 = torch.randn(channels, generator=gen, device=cuda)
+    dx = bn_sums_backward(x, g1, g2)
+    torch.cuda.synchronize()
+    assert (bn_sums.launches, bn_sums_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    r1, r2 = bn_sums_ref(x)
+    axes = (0, 2, 3, 4)
+    assert float(((s1 - r1).abs() / x.float().abs().sum(axes)).max()) <= 1e-5
+    assert float(((s2 - r2).abs() / r2).max()) <= 1e-5
+    assert dx.dtype == dtype and dx.is_contiguous(
+        memory_format=torch.channels_last_3d)
+    assert torch.equal(dx, bn_sums_backward_ref(x, g1, g2))
+    if channels > 1:
+        with pytest.raises(ValueError, match="channels_last"):
+            bn_sums(x.contiguous())
+
+
+def _voxel_case(name, rng):
+    """A port voxel or depth net with random weights and BatchNorm
+    statistics, its input at a small size, and its layout."""
+    from mmhand_torch.models import voxel_nets
+    from mmhand_torch.models.layers import init_lecun_normal
+
+    make, shape, layout = {
+        "VoxelGenerator": (voxel_nets.VoxelGenerator, (2, 16, 16, 16, 1),
+                           torch.channels_last_3d),
+        "VoxelDiscriminator": (voxel_nets.VoxelDiscriminator,
+                               (2, 64, 64, 64, 2), torch.channels_last_3d),
+        "DepthGenerator": (voxel_nets.DepthGenerator, (4, 42),
+                           torch.channels_last),
+        "DepthDiscriminator": (functools.partial(
+            voxel_nets.DepthDiscriminator, ndf=8), (2, 256, 256, 1),
+            torch.channels_last)}[name]
+    gen = torch.Generator().manual_seed(len(name))
+    net = init_lecun_normal(make(), gen)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                m.weight.normal_(1.0, 0.1, generator=gen)
+                m.bias.normal_(0.0, 0.1, generator=gen)
+    x = torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32))
+    return net.train(), x, layout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["VoxelGenerator", "VoxelDiscriminator",
+                                  "DepthGenerator", "DepthDiscriminator"])
+def test_voxel_nets_train_pass_on_card_matches_cpu(cuda, name,
+                                                   record_property):
+    """One train-mode forward and backward of each depth and voxel net in
+    float32 with TF32 off: K2 and K2b at every BatchNorm; outputs within
+    1e-4 of their largest value and the running statistics within 1e-5 of
+    the CPU's.  The CPU's float32 and float64 passes replay the card's
+    (Leaky)ReLU and max-pool decisions (``kink_decisions``; each that
+    differs from a pass's own within ``KINK_MARGIN`` of the input's largest
+    |x|).  Every gradient of the card within 1e-4 of its norm of the
+    CPU's float32 one, plus 4x the CPU's own error against float64
+    (``gradients_off``), but those of the conv biases before a BatchNorm,
+    0 in exact arithmetic.
+    The discriminator runs at 64^3, where its last BatchNorm sees 27 values
+    per sample (1 at 16^3)."""
+    from mmhand_torch.models.check_nets import (
+        KINK_MARGIN,
+        biases_before_batchnorm,
+        gradients_off,
+        kink_decisions,
+    )
+
+    net, x, layout = _voxel_case(name, np.random.RandomState(7))
+    card = copy.deepcopy(net).to(device=cuda, memory_format=layout)
+    f64 = copy.deepcopy(net).double()
+    n_bn = sum(isinstance(m, torch.nn.modules.batchnorm._BatchNorm)
+               for m in net.modules())
+
+    def loss(outs):
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        return sum((o * torch.linspace(-1, 1, o.numel(), device=o.device,
+                                       dtype=o.dtype).view(o.shape)
+                    ).sum() for o in outs), outs
+
+    before = (bn_sums.launches, bn_sums_backward.launches)
+    decisions = []
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with kink_decisions(record=decisions):
+            got_loss, got = loss(card(x.to(cuda)))
+        got_loss.backward()
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    assert (bn_sums.launches - before[0],
+            bn_sums_backward.launches - before[1]) == (n_bn, n_bn)
+    margins = []
+
+    def replayed(model, inp):
+        replay = iter(decisions)
+        with kink_decisions(replay=replay, margins=margins):
+            total, outs = loss(model(inp))
+        total.backward()
+        assert decisions and next(replay, None) is None
+        return outs
+
+    want = replayed(net, x)
+    replayed(f64, x.double())
+    worst = max(margins, key=lambda m: m[2])
+    record_property("decided_apart", sum(m[1] for m in margins))
+    record_property("kink_margin", worst[2])
+    assert worst[2] <= KINK_MARGIN, worst
+    for g, w in zip(got, want):
+        scale = float(w.detach().abs().max())
+        np.testing.assert_allclose(g.detach().cpu().numpy(),
+                                   w.detach().numpy(), rtol=0,
+                                   atol=1e-4 * scale)
+    off, gap, e_cpu = gradients_off(f64, net, card)
+    record_property("gradient_gap", gap)
+    record_property("cpu_gradient_error", e_cpu)
+    assert not off, off
+    assert len(biases_before_batchnorm(net)) == {"VoxelGenerator": 31,
+                                                 "DepthGenerator": 5}.get(
+        name, 0)
+    a = card.state_dict()
+    for k, v in net.state_dict().items():
+        if "running" in k:
+            np.testing.assert_allclose(a[k].cpu().numpy(), v.numpy(), rtol=0,
+                                       atol=1e-5, err_msg=k)
+
+
+@pytest.mark.cuda
+def test_v2v_voxelization_on_card_matches_cpu(cuda):
+    """Four augmented samples through V2VVoxelization on the card and on the
+    CPU with the same RandomState draws: the keypoint coordinates within
+    1e-4 voxel; the cubes equal but for voxels on a threshold, classified
+    in float64: an input voxel differs only where a point lies within 1e-4
+    of a voxel edge (``edge_voxels``), a hand voxel only there or where a
+    bone's quadric lies within 1e-5 of 1 (``bone_boundary``)."""
+    from mmhand_torch.models.check_nets import bone_boundary, edge_voxels
+    from mmhand_torch.ops.voxelize import V2VVoxelization, generate_coord
+
+    rng = np.random.RandomState(3)
+    on_card = V2VVoxelization(200.0, True, np.random.RandomState(0), cuda)
+    on_cpu = V2VVoxelization(200.0, True, np.random.RandomState(0), "cpu")
+    size = on_cpu.sizes[1]
+    for _ in range(4):
+        ref = np.array([0.0, 0.0, 350.0], np.float32)
+        sample = {"points": (rng.uniform(-90, 90, (4096, 3)) + ref).astype(
+                      np.float32),
+                  "keypoints": (rng.uniform(-70, 70, (21, 3)) + ref).astype(
+                      np.float32),
+                  "refpoint": ref}
+        peek = np.random.RandomState()
+        peek.set_state(on_cpu.rng.get_state())
+        draws = V2VVoxelization(200.0, True, peek, "cpu")._draws()
+        got = on_card(sample)
+        want = on_cpu(sample)
+        assert all(g.device.type == "cuda" for g in got)
+        np.testing.assert_allclose(got[1].cpu().numpy(), want[1].numpy(),
+                                   rtol=0, atol=1e-4)
+        point_coord = generate_coord(torch.from_numpy(sample["points"]),
+                                     sample["refpoint"], *draws,
+                                     on_cpu.sizes).numpy()
+        differ = (got[0].cpu() != want[0])[0].numpy()
+        assert not (differ & ~edge_voxels(point_coord, size, 1e-4)).any()
+        hand_differ = (got[2].cpu() != want[2])[0].numpy()
+        boundary = (bone_boundary(want[1].numpy(), size, 1e-5)
+                    | edge_voxels(want[1].numpy(), size, 1e-4))
+        assert not (hand_differ & ~boundary).any()
+        assert float(want[2].sum()) > 21
