@@ -12,7 +12,12 @@
    it skips), K2 (BatchNorm sums; ``torch.batch_norm_stats``) and K2b
    (their backward; ``torch.addcmul``).  Each kernel's
    device time per call comes from the profiler beside its CUDA-event time,
-   which includes the wrapper's host work.
+   which includes the wrapper's host work.  K2 is also held at its edge
+   cases (C 1, 2, 3, 5 and 21 with N mod k != 0, unaligned bases) and
+   timed at the main paths' BatchNorm sites by a CUDA graph of 50 calls
+   (the GAN step's four shapes and K2 per step, the MSRA/V2V C=1, C=21 and
+   largest 5-D sites, PoseResNet-50's 56 inputs), twice, beside its bound
+   and ``torch.batch_norm_stats`` timed the same way.
 3. Holds the port on the card against the port on the CPU (the path the
    tests hold against mmhand_tpu) on small inputs, in float32 with TF32
    off: batch preparation and a toy generator; two toy train steps.
@@ -138,9 +143,8 @@ baseline zoo:
     step of each at full width (batch 8 on 64^3, batch 32, batch 8 at 256
     px; f32, cuDNN defaults): finite losses, every tensor moved, K2 and
     K2b once per BatchNorm (43 in all), each held against its plain
-    version on every input; K2 and K2b timed at the C=1 and C=21 sites
-    and the largest 5-D one beside their bounds and
-    ``torch.batch_norm_stats``; a profiled VoxelGenerator step; and
+    version on every input; K2b timed at the C=1 and C=21 sites and the
+    largest 5-D one beside its bound; a profiled VoxelGenerator step; and
     ``knn_pose_distance`` (k 25) over 76,375 random poses on the card
     against the CPU, timed per query.
 
@@ -156,6 +160,7 @@ beside this file, it stops before printing any result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import math
@@ -177,13 +182,22 @@ K3_REPLACES = "mmhand_tpu/ops/jointsmap.py:115"
 BN_SOURCE = "mmhand_torch/csrc/bn_stats.cu"
 # each kernel's CUDA kernels, by the names the profiler shows
 K1_KERNELS = ("gaussian_heatmaps_kernel",)
-K2_KERNELS = ("bn_sums_partial_kernel", "bn_sums_finish_kernel")
+K2_KERNELS = ("bn_sums_kernel",)
 K2B_KERNELS = ("bn_sums_backward_kernel",)
 K3_KERNELS = ("jointsmap_kernel",)
 # the largest BatchNorm input of the train step (in bf16, and in f16 for the
 # fp16 slice), a PATBlock attention stream's, and a ragged shape in f32
 BN_SHAPES = [((16, 64, 256, 256), "bfloat16"), ((16, 64, 256, 256), "float16"),
              ((16, 512, 64, 64), "bfloat16"), ((3, 29, 37, 41), "float32")]
+# K2's edge cases, held but not timed: C no multiple of the vector width
+# with N mod k != 0, then views at an unaligned base (``big[1:]``, H*W odd),
+# the last two of fewer elements than the head before a 16-byte boundary
+BN_EDGE_SHAPES = [((3, c, 7, 9), dtype, 0) for c in (1, 2, 3, 5, 21)
+                  for dtype in ("float32", "bfloat16")]
+BN_EDGE_SHAPES += [((5, 1, 7, 9), "float32", 1), ((9, 3, 5, 7), "float16", 1),
+                   ((33, 1, 127, 129), "float32", 1),
+                   ((3, 21, 5, 7, 9), "float32", 1),
+                   ((2, 1, 1, 1), "float32", 1), ((2, 1, 1, 1), "bfloat16", 1)]
 # the train slice: the JAX Config() flagship (ngf 64, 9 PATBlocks, 256 px),
 # batch 16, a few steps; its BatchNorms: 47 in G, 9 in each D, run once in
 # G, twice in the G loss's D forwards and twice in each D phase
@@ -236,6 +250,18 @@ MSRA = dict(frames=16, samples=8, cubic=200.0, depth_g_batch=32,
 # the four nets' train-mode BatchNorms: 31 + 4 + 5 + 3
 MSRA_BN_SITES = {"VoxelGenerator": 31, "VoxelDiscriminator": 4,
                  "DepthGenerator": 5, "DepthDiscriminator": 3}
+# K2's per-site table (bn_site_phase): the GAN train step's four
+# train-mode BatchNorm input shapes at batch 16 in bf16, with their calls
+# per step (10 + 10 + 16 + 65 = BN_PER_STEP), and the MSRA/V2V group's
+# C=1 and C=21 sites and its largest 5-D one, f32 (msra_v2v_phase's nets)
+GAN_BN_SITES = [((16, 64, 256, 256), 10), ((16, 128, 128, 128), 10),
+                ((16, 512, 64, 64), 16), ((16, 256, 64, 64), 65)]
+MSRA_BN_TIMED = [(8, 1, 64, 64, 64), (32, 1, 128, 128), (8, 1, 256, 256),
+                 (8, 21, 256, 256), (8, 16, 64, 64, 64)]
+# calls per CUDA graph in graph_ms, and the L2 cache the inputs must
+# outgrow so that every call reads its input from HBM, as the bound counts
+GRAPH_CALLS = 50
+L2_BYTES = 50e6
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM
 F32_FLOPS = 67e12           # H100 SXM, outside the tensor cores
 BF16_FLOPS = 989e12         # H100 SXM, dense bf16 on the tensor cores
@@ -262,6 +288,42 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(fns, replays: int = 5) -> float:
+    """Device milliseconds of one call: the calls ``fns`` (each a function
+    of no argument) captured in one CUDA graph, replayed ``replays`` times
+    between CUDA events; the median replay over ``len(fns)``.  The graph
+    takes the wrapper's host work out, so this is the device's time from
+    one call's start to the next one's; it fails unless finite."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in fns:
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / len(fns))
+    del graph
+    ms = statistics.median(times)
+    check(math.isfinite(ms) and ms > 0, f"graph time {ms}")
+    return ms
 
 
 def host_us(fn, calls: int = 500) -> float:
@@ -611,6 +673,19 @@ def bn_kernel_phase():
                  "device_ms": bwd_device_ms, "skipped_share": None}]
         del x, dx
 
+    edges = []
+    for shape, dtype, offset in BN_EDGE_SHAPES:
+        layout = (torch.channels_last if len(shape) == 4
+                  else torch.channels_last_3d)
+        big = (torch.randn(shape, generator=gen, device="cuda") * 1.5 + 0.3
+               ).to(getattr(torch, dtype)).contiguous(memory_format=layout)
+        edges.append(big[offset:])
+        check(edges[-1].is_contiguous(memory_format=layout)
+              and bool(edges[-1].data_ptr() % 16) == bool(offset),
+              f"edge case {shape} {dtype} {offset}")
+    print(hold_bn_inputs("K2's edge cases (C 1, 2, 3, 5, 21 with N mod k "
+                         "!= 0; unaligned bases, one element)", edges))
+
     raised = False
     try:
         bn_sums(torch.zeros(2, 8, 4, 4, device="cuda"))
@@ -618,6 +693,165 @@ def bn_kernel_phase():
         raised = True
     check(raised, "K2 took a tensor that is not channels_last")
     return records
+
+
+def k2_split_ms(fns) -> dict:
+    """Device milliseconds per call of each K2 CUDA kernel (any kernel
+    whose name holds ``bn_sums`` but not ``backward``), from torch.profiler
+    over the calls ``fns``; {} when the trace holds none (not measured)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fns[0]()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pad_trace_start()
+        for fn in fns:
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for ev in prof.key_averages():
+        name = re.search(r"\w*bn_sums\w*", ev.key)
+        us = getattr(ev, "self_device_time_total", 0.0)
+        if name and "backward" not in name.group() and us:
+            key = name.group()
+            split[key] = split.get(key, 0.0) + us / 1e3 / len(fns)
+    return split
+
+
+def pose_resnet_batch():
+    """PoseResNet-50 in bf16, channels_last, on the card, and a batch of 32
+    random 256 px images (NHWC), from SEED."""
+    import torch
+
+    from mmhand_torch.models.check_nets import make_test_pose_resnet
+
+    size = FULL["size"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    net = make_test_pose_resnet(POSE["size"], torch.bfloat16, SEED).to(
+        device="cuda", memory_format=torch.channels_last)
+    x = torch.rand(POSE["batch"], size, size, 3, generator=gen,
+                   device="cuda") * 2 - 1
+    return net, x, gen
+
+
+def pose_resnet_bn_inputs(net, x) -> list:
+    """The inputs of the net's 56 BatchNorms in one train-mode forward of
+    ``x`` (without autograd)."""
+    import torch
+
+    from mmhand_torch.models.layers import BatchNorm2d
+
+    inputs = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: inputs.append(args[0].detach()))
+        for m in net.modules() if isinstance(m, BatchNorm2d)]
+    net.train()
+    with torch.no_grad():
+        net(x)
+    for h in hooks:
+        h.remove()
+    check(len(inputs) == POSE["bn_sites"], f"{len(inputs)} BatchNorm inputs")
+    return inputs
+
+
+def bn_site_phase(rounds: int = 2) -> dict:
+    """K2 per call at the main paths' sites by ``graph_ms`` (GRAPH_CALLS
+    calls in one CUDA graph, cycling over enough copies of the input to
+    outgrow the L2 cache, so that each call reads HBM as its bound
+    assumes), beside the profiler's time per CUDA kernel (first round
+    only), the bound, the share of the bound and ``torch.batch_norm_stats``
+    timed the same way:
+    the GAN step's four shapes (and K2 per step over its 101 calls), the
+    MSRA/V2V C=1, C=21 and largest 5-D sites, and PoseResNet-50's 56
+    inputs summed.  ``rounds`` repeats of the timing show the spread.
+    Returns the last round's K2 milliseconds by site."""
+    import torch
+
+    from mmhand_torch.ops.bn_stats import bn_sums
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def inputs(shape, dtype):
+        layout = (torch.channels_last if len(shape) == 4
+                  else torch.channels_last_3d)
+        nbytes = math.prod(shape) * torch.finfo(dtype).bits // 8
+        copies = min(GRAPH_CALLS, math.ceil(2 * L2_BYTES / nbytes))
+        return [(torch.randn(shape, generator=gen, device="cuda") * 1.5 + 0.3
+                 ).to(dtype).contiguous(memory_format=layout)
+                for _ in range(copies)]
+
+    def cycle(fn, xs):
+        return [functools.partial(fn, xs[i % len(xs)])
+                for i in range(GRAPH_CALLS)]
+
+    def k2_bound(x):
+        return bound(x.numel() * x.element_size() + 2 * x.shape[1] * 4,
+                     3 * x.numel())[0]
+
+    sites = [(f"GAN x{calls}", shape, torch.bfloat16, calls)
+             for shape, calls in GAN_BN_SITES]
+    sites += [("MSRA/V2V", shape, torch.float32, 0) for shape in MSRA_BN_TIMED]
+    data = [(what, inputs(shape, dtype), calls)
+            for what, shape, dtype, calls in sites]
+    net, images, pose_gen = pose_resnet_batch()
+    pose = pose_resnet_bn_inputs(net, images)
+    weights = torch.randn(POSE["batch"], FULL["size"] // 4,
+                          FULL["size"] // 4, 21, generator=pose_gen,
+                          device="cuda")
+
+    def train_pass():
+        net.zero_grad(set_to_none=True)
+        (net(images) * weights).sum().backward()
+
+    library = functools.partial(torch.batch_norm_stats, eps=1e-5)
+    result = {}
+    for round_ in range(1, rounds + 1):
+        step_ms = step_lib = step_bound = 0.0
+        for what, xs, calls in data:
+            x = xs[0]
+            ms = graph_ms(cycle(bn_sums, xs))
+            lib = graph_ms(cycle(library, xs))
+            split = k2_split_ms(cycle(bn_sums, xs)) if round_ == 1 else {}
+            b = k2_bound(x)
+            step_ms += calls * ms
+            step_lib += calls * lib
+            step_bound += calls * b
+            result[f"{tuple(x.shape)} {x.dtype}"] = ms
+            parts = (", ".join(f"{k} {v:.4f}" for k, v in split.items())
+                     or ("not measured" if round_ == 1 else "round 1 only"))
+            print(f"K2 site, round {round_}: {what} {tuple(x.shape)} "
+                  f"{str(x.dtype).removeprefix('torch.')} "
+                  f"({x.numel() * x.element_size() / 1e6:.1f} MB, "
+                  f"{len(xs)} copies): {ms:.4f} ms per call (CUDA graph of "
+                  f"{GRAPH_CALLS}), bound {b:.4f} ms ({100 * b / ms:.1f}%); "
+                  f"profiler split {parts} ms; torch.batch_norm_stats "
+                  f"{lib:.4f} ms ({100 * b / lib:.1f}%)")
+        print(f"K2 per GAN step, round {round_} ({BN_PER_STEP} calls over "
+              f"the four sites): {step_ms:.4f} ms, bound {step_bound:.4f} ms "
+              f"({100 * step_bound / step_ms:.1f}%); torch.batch_norm_stats "
+              f"{step_lib:.4f} ms")
+        ms = graph_ms([functools.partial(bn_sums, t) for t in pose]) * len(pose)
+        lib = graph_ms([functools.partial(library, t) for t in pose]) * len(pose)
+        b = sum(k2_bound(t) for t in pose)
+        result["PoseResNet-50"] = ms
+        print(f"K2 over PoseResNet-50's {len(pose)} BatchNorm inputs, round "
+              f"{round_} (batch {POSE['batch']}, bf16, "
+              f"{sum(t.numel() * t.element_size() for t in pose) / 1e9:.3f} "
+              f"GB): {ms:.4f} ms (CUDA graph of the {len(pose)} calls), "
+              f"bound {b:.4f} ms ({100 * b / ms:.1f}%); "
+              f"torch.batch_norm_stats {lib:.4f} ms")
+        # where the host sets the pace: the wrapper's host work, and the
+        # PoseResNet-50 train pass that runs K2 and K2b at its 56 sites
+        small = next(xs[0] for _, xs, _ in data
+                     if xs[0].shape == MSRA_BN_TIMED[1])
+        wrapper_us = host_us(lambda: bn_sums(small))
+        pass_ms = cuda_ms(train_pass, iters=5, warmup=1)
+        print(f"K2's wrapper, round {round_}: {wrapper_us:.2f} us of host work "
+              f"per call at {tuple(small.shape)} (host clock); PoseResNet-50 "
+              f"train-mode forward and backward at batch {POSE['batch']}: "
+              f"{pass_ms:.3f} ms (CUDA events, median of 5)")
+    return result
 
 
 def raw_batch(cfg, n):
@@ -2501,14 +2735,10 @@ def pose_resnet_phase() -> dict:
         make_test_pose_resnet,
         pose_resnet_f64,
     )
-    from mmhand_torch.models.layers import BatchNorm2d
     from mmhand_torch.ops.bn_stats import bn_sums, bn_sums_ref
 
     size, batch, sites = FULL["size"], POSE["batch"], POSE["bn_sites"]
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    net = make_test_pose_resnet(POSE["size"], torch.bfloat16, SEED).to(
-        device="cuda", memory_format=torch.channels_last)
-    x = torch.rand(batch, size, size, 3, generator=gen, device="cuda") * 2 - 1
+    net, x, gen = pose_resnet_batch()
     w = torch.randn(batch, size // 4, size // 4, 21, generator=gen,
                     device="cuda")
     net.eval()
@@ -2536,15 +2766,7 @@ def pose_resnet_phase() -> dict:
               for p in net.parameters()), "PoseResNet gradients")
     train_ms = cuda_ms(train_pass, iters=5, warmup=1)
 
-    inputs = []
-    hooks = [m.register_forward_pre_hook(
-        lambda mod, args: inputs.append(args[0].detach()))
-        for m in net.modules() if isinstance(m, BatchNorm2d)]
-    with torch.no_grad():
-        net(x)
-    for h in hooks:
-        h.remove()
-    check(len(inputs) == sites, f"{len(inputs)} BatchNorm inputs")
+    inputs = pose_resnet_bn_inputs(net, x)
     k2_ms = cuda_ms(lambda: [bn_sums(t) for t in inputs], iters=5)
     lib_ms = cuda_ms(lambda: [torch.batch_norm_stats(t, 1e-5) for t in inputs],
                      iters=5)
@@ -3077,8 +3299,8 @@ def msra_v2v_phase(tmp: Path) -> dict:
     draws; the four nets card against CPU (float32, TF32 off) at small
     size; one train-mode step of each at full width (K2 and K2b once per
     BatchNorm, 43 in all, held against their plain versions on every
-    input); K2 and K2b timed at the C=1 sites and the largest 5-D one; the
-    pose search over 76,375 poses on the card against the CPU.  Returns
+    input); K2b timed at the C=1 sites and the largest 5-D one; the pose
+    search over 76,375 poses on the card against the CPU.  Returns
     the kernels' launches in the train steps."""
     import copy
 
@@ -3098,7 +3320,6 @@ def msra_v2v_phase(tmp: Path) -> dict:
     )
     from mmhand_torch.models.layers import BatchNorm2d, BatchNorm3d
     from mmhand_torch.ops.bn_stats import (
-        bn_sums,
         bn_sums_backward,
         bn_sums_backward_ref,
         bn_sums_ref,
@@ -3308,7 +3529,8 @@ def msra_v2v_phase(tmp: Path) -> dict:
           == sum(MSRA_BN_SITES.values()),
           f"MSRA/V2V train launches {total}")
 
-    # 6. K2 and K2b at the C=1 and C=21 sites and the largest 5-D one
+    # 6. K2b at the C=1 and C=21 sites and the largest 5-D one, and both
+    # plain versions (K2's times there: bn_site_phase)
     largest = max((t.numel() for t in sites.values() if t.dim() == 5))
     for where, t in sites.items():
         if t.shape[1] not in (1, 21) and t.numel() != largest:
@@ -3316,22 +3538,16 @@ def msra_v2v_phase(tmp: Path) -> dict:
         c = t.shape[1]
         g1 = torch.randn(c, device="cuda")
         g2 = torch.randn(c, device="cuda")
-        k2 = kernel_device_ms(lambda: bn_sums(t), K2_KERNELS)
         k2b = kernel_device_ms(lambda: bn_sums_backward(t, g1, g2),
                                K2B_KERNELS)
-        lib = kernel_device_ms(lambda: torch.batch_norm_stats(t, 1e-5),
-                               ("batch_norm",))
         plain = cuda_ms(lambda: bn_sums_ref(t), iters=10)
         plain_b = cuda_ms(lambda: bn_sums_backward_ref(t, g1, g2), iters=10)
         nbytes = t.numel() * t.element_size()
-        k2_bound, _ = bound(nbytes + 2 * c * 4, 3 * t.numel())
         k2b_bound, _ = bound(2 * nbytes + 2 * c * 4, 2 * t.numel())
-        print(f"K2 / K2b at {where} {t.dtype} ({nbytes / 1e6:.1f} MB): "
-              f"{k2:.4f} / {k2b:.4f} ms of device time (profiler), bound "
-              f"{k2_bound:.4f} / {k2b_bound:.4f} ms ({100 * k2_bound / k2:.1f}"
-              f"% / {100 * k2b_bound / k2b:.1f}%); torch.batch_norm_stats "
-              f"{lib:.4f} ms; plain {plain:.4f} / {plain_b:.4f} ms (CUDA "
-              f"events)")
+        print(f"K2b at {where} {t.dtype} ({nbytes / 1e6:.1f} MB): "
+              f"{k2b:.4f} ms of device time (profiler), bound "
+              f"{k2b_bound:.4f} ms ({100 * k2b_bound / k2b:.1f}%); plain "
+              f"K2 / K2b {plain:.4f} / {plain_b:.4f} ms (CUDA events)")
     vg = _msra_nets(gen)["VoxelGenerator"].to(
         device="cuda", memory_format=torch.channels_last_3d).train()
     vg_opt = torch.optim.Adam(vg.parameters(), lr=2e-4, betas=(0.5, 0.999))
@@ -3405,6 +3621,7 @@ def main() -> int:
 
     k1 = kernel_phase()
     k2, k2b = bn_kernel_phase()
+    bn_site_phase()
     k3 = jointsmap_kernel_phase()
     small_reference_phase()
     small_train_phase()

@@ -3,50 +3,86 @@
 // K2 replaces the Pallas kernel mmhand_tpu/ops/bn_stats.py:87
 // `_moments_kernel` (reached through `_sums_2d_pallas`): per-channel f32
 // (sum x, sum x^2) over the (N = B*H*W, C) row-major view of a channels_last
-// activation.  The Pallas grid carries the sums from one row tile to the next
-// in a revisited output block; Hopper's blocks run in no order and carry
-// nothing, so the reduction is split in two passes:
+// activation, read as the flat array of T = N*C elements.
 //
-//   pass 1: a grid of (row chunks x channel tiles).  Each thread loads 16
-//           bytes (8 bf16 or 4 f32 channels) per row, neighbouring threads on
-//           neighbouring addresses, and accumulates in f32 registers; the
-//           block then sums its rows in shared memory in a fixed order and
-//           writes one (2, C) partial per chunk to an f32 scratch.
-//   pass 2: one small kernel sums the chunks' partials in a fixed order.
+// What bounds it: HBM bytes, and at the small sites a fixed cost per call.
+// K2 reads x once and does 3 f32 operations per element: 134 MB at the
+// train step's largest site, (16, 64, 256, 256) bf16, >= 0.040 ms at
+// 3.35 TB/s; 2-8 MB at the voxel and depth nets' C=1 sites, under 3 us,
+// where the launch, the first loads' latency and the last block's sums
+// take most of the time.  So it is one launch of one wave, every load is
+// 16 bytes wide and coalesced, and the end of the kernel is short.
 //
-// No atomics, so the result is the same from run to run.  Channels that are
-// not a multiple of the vector width, or a misaligned base, take a masked
-// scalar load.
+// Every C gets 16-byte loads.  The plan (ops/bn_stats.py `sums_plan`,
+// passed in as SumsPlan) cuts the array as the TPU kernel's lane packing
+// (mmhand_tpu/ops/bn_stats.py:119-127) views (N, C) as (N/p, p*C):
+//
+//   head   the elements before the first 16-byte boundary (fewer than one
+//          vector; none when x is aligned, as torch allocates it);
+//   body   super-rows of W = lcm(C, vec) elements: k = W / C rows, V = W /
+//          vec whole vectors; slot s of every super-row holds channel
+//          (head + s) mod C;
+//   tail   what follows the last whole super-row (N mod k rows, or fewer
+//          than W elements after a head).
+//
+// At C = 1 f32 a super-row is 4 rows, at C = 21 bf16 8 rows of 21
+// channels; the slots fold back into channels at the end, and the head
+// and tail are added element by element.
+//
+// The grid is one wave: one block of 1024 threads per SM.  Block (chunk,
+// tile) has `lanes` (<= 8) threads across vectors tile*lanes + lane of a
+// super-row (128 contiguous bytes) and 1024 / lanes super-rows in flight,
+// kUnroll loads issued before any is used; f32 sums per slot in registers.
+// It sums its rows by a fixed tree: shuffles down at offsets >= lanes
+// within each warp, then, through shared memory, the 32 warps by the same
+// shuffle tree, and stores one partial of 2 x lanes*vec floats.
+//
+// No second launch: each block then takes a ticket of its tile; the tile's
+// last block sums the tile's partials (lane i of a warp sums chunks i, i +
+// 32, ... in order, then the lanes by the tree) and writes its channels.
+// Where C is no multiple of vec and there is more than one tile, a second
+// ticket lets the last tile fold every tile's slots.  Which block is last
+// changes who adds, never the order of the additions: the sums are the
+// same bits on every run, and no float atomics touch them.
+//
+// The tickets are a static device array, zero when the module loads; each
+// last block resets its ticket, so the next launch and every replay of a
+// CUDA graph start from zero, with no memset launch.  Two K2 launches that
+// overlapped on one device would share the tickets: the port runs one
+// stream per process (data parallelism too: a process per rank), and the
+// launches of one stream never overlap.
 //
 // K2b is the backward of the same custom_vjp (mmhand_tpu/ops/bn_stats.py:73-77
 // `_sums_2d_bwd`): dx = g1[c] + 2 g2[c] x[m, c] in f32, stored in x's type,
-// one elementwise pass with 16-byte loads and stores.  The products and the
-// sum are rounded one at a time (no FMA), in the order the plain version
-// takes, so K2b equals it bit for bit.
-//
-// What bounds them: HBM bytes.  K2 reads x once (134 MB at the largest site
-// of the train step, (16, 64, 256, 256) bf16: >= 0.040 ms at 3.35 TB/s) and
-// does 3 f32 operations per element; K2b reads x and writes dx.  The design
-// keeps every load 16 bytes wide and coalesced, puts four blocks of 256
-// threads on each SM so enough loads are in flight, and keeps pass 2 to a
-// few microseconds by bounding the number of chunks.
+// one elementwise pass with 16-byte loads and stores (reads x, writes dx).
+// The products and the sum are rounded one at a time (no FMA), in the order
+// the plain version takes, so K2b equals it bit for bit.  Channels that are
+// not a multiple of the vector width, or a misaligned x or dx, take a
+// masked scalar load.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;      // K2b: threads of a block
 constexpr int kVecBytes = 16;
-constexpr int kMaxLanes = 64;      // a channel tile is at most 64 vectors wide
-constexpr int kBlocksPerSm = 4;    // pass-1 blocks in flight on each SM
-constexpr int kFinishCols = 32;    // pass 2: columns per block
-constexpr int kFinishLanes = 32;   // pass 2: chunk lanes per block
+constexpr int kMaxLanes = 64;      // K2b: a channel tile is at most 64 vectors
+constexpr int kBlocksPerSm = 4;    // K2b: blocks per SM (times 2)
+constexpr int kSumThreads = 1024;  // K2: threads of its one block per SM
+constexpr int kSumWarps = kSumThreads / 32;
+constexpr int kSumLanes = 8;       // K2: a channel tile is at most 8 vectors
+constexpr int kUnroll = 4;         // K2: loads in flight per thread
+constexpr int kMaxChunks = 256;    // K2: chunks a tile's last block sums
+constexpr int kMaxTickets = 8192;  // K2: tiles + 1 at most
 
 enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
+
+__device__ unsigned int g_tickets[kMaxTickets];
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T v);
@@ -74,15 +110,254 @@ __device__ __forceinline__ __half from_f32<__half>(float v) {
   return __float2half_rn(v);
 }
 
-// How a (N, C) view is cut: `lanes` threads of a block sit across a tile of
-// lanes * vec channels, kThreads / lanes rows at a time.
+// K2's plan, field for field ops/bn_stats.py `SumsPlan` (int64 each).
+struct SumsPlan {
+  int64_t n_elems;         // T = N * C
+  int64_t c;
+  int64_t head;            // elements before the 16-byte boundary
+  int64_t width;           // W = k * C, a multiple of vec
+  int64_t vectors;         // V = W / vec
+  int64_t lanes;           // threads across a tile: a power of two <= 8
+  int64_t tiles;           // ceil(V / lanes)
+  int64_t super_rows;      // whole super-rows after the head
+  int64_t chunks;          // blocks along the rows of each tile
+  int64_t rows_per_chunk;
+};
+constexpr int kPlanFields = sizeof(SumsPlan) / sizeof(int64_t);
+
+template <typename T>
+__device__ __forceinline__ void accumulate(const uint4& raw, float* s1,
+                                           float* s2) {
+  constexpr int kVec = kVecBytes / sizeof(T);
+  const T* v = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) {
+    const float f = to_f32(v[j]);
+    s1[j] += f;
+    s2[j] = fmaf(f, f, s2[j]);
+  }
+}
+
+// The warp's 32 float4s summed by a fixed tree; lane 0 holds the sum.
+__device__ __forceinline__ float4 warp_sum(float4 a) {
+#pragma unroll
+  for (int off = 16; off >= 1; off /= 2) {
+    a.x += __shfl_down_sync(0xffffffffu, a.x, off);
+    a.y += __shfl_down_sync(0xffffffffu, a.y, off);
+    a.z += __shfl_down_sync(0xffffffffu, a.z, off);
+    a.w += __shfl_down_sync(0xffffffffu, a.w, off);
+  }
+  return a;
+}
+
+__device__ __forceinline__ void add4(float4& a, const float4& b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+
+// Thread 0 takes a ticket of `count`; true in every thread of the block
+// that took the last one, which resets the ticket for the next launch.
+// The barrier, then thread 0's acquire-release atomic, release the
+// block's stores to the other blocks and acquire theirs, which the last
+// block reads past L1 (__ldcg).
+__device__ __forceinline__ bool last_to_arrive(unsigned int* ticket,
+                                               int64_t count) {
+  __shared__ bool last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned int before;
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;"
+                 : "=r"(before)
+                 : "l"(ticket)
+                 : "memory");
+    last = before == static_cast<unsigned int>(count - 1);
+    if (last) *ticket = 0u;
+  }
+  __syncthreads();
+  return last;
+}
+
+// Adds channel ch's elements of the head and of the tail, in order
+// (mirrored by ops/bn_stats.py `bn_sums_by_plan`, which the CPU tests hold).
+template <typename T>
+__device__ __forceinline__ void add_edges(const T* x, const SumsPlan& p,
+                                          int64_t ch, float& a, float& b) {
+  for (int64_t e = ch; e < p.head; e += p.c) {
+    const float f = to_f32(x[e]);
+    a += f;
+    b = fmaf(f, f, b);
+  }
+  const int64_t tail = p.head + p.super_rows * p.width;
+  for (int64_t e = tail + ((ch - tail) % p.c + p.c) % p.c; e < p.n_elems;
+       e += p.c) {
+    const float f = to_f32(x[e]);
+    a += f;
+    b = fmaf(f, f, b);
+  }
+}
+
+// C not a multiple of vec: channel ch owns slots (ch - head) mod C + m C,
+// m < k, of `slots` ([tiles][2][tw]: in shared memory, or in global memory
+// that other blocks wrote), summed in m order, then its head and tail.
+// ops/bn_stats.py `bn_sums_by_plan` mirrors this arithmetic, the scratch
+// layout and, in bn_sums_kernel, the slot-to-channel map of a C that is a
+// multiple of vec.
+template <typename T>
+__device__ void fold(const T* x, const SumsPlan& p, const float* slots,
+                     bool global, int tw, bool edges, float* out) {
+  const int64_t k = p.width / p.c;
+  for (int64_t ch = threadIdx.x; ch < p.c; ch += kSumThreads) {
+    const int64_t s0 = p.head ? ((ch - p.head) % p.c + p.c) % p.c : ch;
+    float a = 0.0f, b = 0.0f;
+    for (int64_t m = 0; m < k; ++m) {
+      // slot s of tile s / tw (tw a power of two)
+      const int64_t s = s0 + m * p.c;
+      const float* at = slots + (s & ~int64_t(tw - 1)) * 2 + (s & (tw - 1));
+      a += global ? __ldcg(at) : at[0];
+      b += global ? __ldcg(at + tw) : at[tw];
+    }
+    if (edges) add_edges(x, p, ch, a, b);
+    out[ch] = a;
+    out[p.c + ch] = b;
+  }
+}
+
+// K2: block (chunk, tile) of the plan above, one block of kSumThreads per
+// SM.  A partial is 2 x tw floats (tw = lanes * vec slots: the sums, then
+// the sums of squares).  Scratch: [chunks][tiles] block partials, then
+// [tiles] slot sums.
+template <typename T>
+__global__ void __launch_bounds__(kSumThreads, 1)
+bn_sums_kernel(const T* __restrict__ x, const SumsPlan p,
+               float* __restrict__ scratch, float* __restrict__ out) {
+  constexpr int kVec = kVecBytes / sizeof(T);
+  __shared__ __align__(16) float red[kSumWarps * 2 * kSumLanes * kVec];
+  const int lanes = static_cast<int>(p.lanes);
+  const int lane = threadIdx.x % lanes;
+  const int rows_per_iter = kSumThreads / lanes;
+  const int tw = lanes * kVec;
+  const int quads = 2 * tw / 4;  // float4 columns of a partial
+  const int warp = threadIdx.x / 32;
+  const int wlane = threadIdx.x % 32;
+  const int64_t tile = blockIdx.y;
+  const int64_t chunk = blockIdx.x;
+  const int64_t v = tile * lanes + lane;
+
+  float s1[kVec], s2[kVec];
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) {
+    s1[j] = 0.0f;
+    s2[j] = 0.0f;
+  }
+  if (v < p.vectors) {
+    // vector v of super-row 0; super-rows are V vectors apart
+    const uint4* base = reinterpret_cast<const uint4*>(x + p.head) + v;
+    const int64_t begin = chunk * p.rows_per_chunk;
+    const int64_t end = begin + p.rows_per_chunk < p.super_rows
+                            ? begin + p.rows_per_chunk
+                            : p.super_rows;
+    // kUnroll rows per step, the loads all issued first; rows past the
+    // chunk load as zeros, which add nothing
+    for (int64_t r = begin + threadIdx.x / lanes; r < end;
+         r += kUnroll * rows_per_iter) {
+      uint4 raw[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int64_t at = r + u * rows_per_iter;
+        raw[u] = at < end ? __ldg(base + at * p.vectors)
+                          : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) accumulate<T>(raw[u], s1, s2);
+    }
+  }
+
+  // the block's rows -> one partial: shuffles down at offsets >= lanes sum
+  // a warp's 32 / lanes row groups; then warp q's lane i sums float4
+  // column q of the 32 warps' sums by the same tree
+  for (int off = 16; off >= lanes; off /= 2) {
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      s1[j] += __shfl_down_sync(0xffffffffu, s1[j], off);
+      s2[j] += __shfl_down_sync(0xffffffffu, s2[j], off);
+    }
+  }
+  if (wlane < lanes) {
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      red[warp * 2 * tw + lane * kVec + j] = s1[j];
+      red[warp * 2 * tw + tw + lane * kVec + j] = s2[j];
+    }
+  }
+  __syncthreads();
+  const int64_t row = p.tiles * 2 * tw;  // floats of one chunk's partials
+  for (int q = warp; q < quads; q += kSumWarps) {
+    const float4 sum = warp_sum(
+        wlane < kSumWarps
+            ? reinterpret_cast<const float4*>(red + wlane * 2 * tw)[q]
+            : make_float4(0.0f, 0.0f, 0.0f, 0.0f));
+    if (wlane == 0) {
+      reinterpret_cast<float4*>(scratch + chunk * row + tile * 2 * tw)[q] =
+          sum;
+    }
+  }
+
+  // the tile's last block: lane i of warp q sums float4 column q of chunks
+  // i, i + 32, ... in order, then the lanes by the tree, into `red`
+  if (!last_to_arrive(&g_tickets[tile], p.chunks)) return;
+  for (int q = warp; q < quads; q += kSumWarps) {
+    float4 part[kMaxChunks / 32];
+#pragma unroll
+    for (int i = 0; i < kMaxChunks / 32; ++i) {
+      const int64_t from = wlane + 32 * i;
+      part[i] = from < p.chunks
+                    ? __ldcg(reinterpret_cast<const float4*>(
+                                 scratch + from * row + tile * 2 * tw) + q)
+                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int i = 1; i < kMaxChunks / 32; ++i) add4(part[0], part[i]);
+    const float4 sum = warp_sum(part[0]);
+    if (wlane == 0) reinterpret_cast<float4*>(red)[q] = sum;
+  }
+  __syncthreads();
+  const bool edges = p.head > 0 || p.head + p.super_rows * p.width < p.n_elems;
+  if (p.width == p.c) {
+    // C a multiple of vec: each channel in one slot of one tile
+    for (int c0 = threadIdx.x; c0 < tw && tile * tw + c0 < p.width;
+         c0 += kSumThreads) {
+      const int64_t s = tile * tw + c0;
+      const int64_t ch = p.head ? (p.head + s) % p.c : s;
+      float a = red[c0];
+      float b = red[tw + c0];
+      if (edges) add_edges(x, p, ch, a, b);
+      out[ch] = a;
+      out[p.c + ch] = b;
+    }
+    return;
+  }
+  if (p.tiles == 1) {
+    fold(x, p, red, false, tw, edges, out);
+    return;
+  }
+  // more tiles: the last one folds every tile's slots
+  float* slots = scratch + p.chunks * row;  // [tiles][2][tw]
+  for (int i = threadIdx.x; i < 2 * tw; i += kSumThreads) {
+    slots[tile * 2 * tw + i] = red[i];
+  }
+  if (!last_to_arrive(&g_tickets[p.tiles], p.tiles)) return;
+  fold(x, p, slots, true, tw, edges, out);
+}
+
+// K2b's cut of a (N, C) view: `lanes` threads of a block sit across a tile
+// of lanes * vec channels, kThreads / lanes rows at a time.
 struct Plan {
   int vec;
   int lanes;
   int rows_per_iter;
   int ctiles;
-  int64_t chunks;
-  int64_t rows_per_chunk;
 };
 
 // SMs of the first device asked; the plan only sizes the grid, so another
@@ -99,7 +374,7 @@ int sm_count() {
   return sms;
 }
 
-Plan make_plan(int64_t n, int c, int elem_bytes) {
+Plan make_plan(int c, int elem_bytes) {
   Plan p;
   p.vec = kVecBytes / elem_bytes;
   const int vectors = (c + p.vec - 1) / p.vec;
@@ -107,119 +382,11 @@ Plan make_plan(int64_t n, int c, int elem_bytes) {
   while (p.lanes < vectors && p.lanes < kMaxLanes) p.lanes *= 2;
   p.rows_per_iter = kThreads / p.lanes;
   p.ctiles = (c + p.lanes * p.vec - 1) / (p.lanes * p.vec);
-  if (n == 0) {
-    p.chunks = 0;
-    p.rows_per_chunk = 1;
-    return p;
-  }
-  const int64_t target = (int64_t(kBlocksPerSm) * sm_count() + p.ctiles - 1) / p.ctiles;
-  const int64_t most = (n + p.rows_per_iter - 1) / p.rows_per_iter;
-  const int64_t chunks = target < most ? target : most;
-  p.rows_per_chunk = (n + chunks - 1) / chunks;
-  p.chunks = (n + p.rows_per_chunk - 1) / p.rows_per_chunk;
   return p;
 }
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % kVecBytes == 0;
-}
-
-// Pass 1: block (chunk, channel tile) -> partial[chunk] = (sum, sum_sq) over
-// its rows, for its channels.
-template <typename T, bool kVector>
-__global__ void __launch_bounds__(kThreads)
-bn_sums_partial_kernel(const T* __restrict__ x, float* __restrict__ partial,
-                       int64_t n, int c, int lanes, int64_t rows_per_chunk) {
-  constexpr int kVec = kVecBytes / sizeof(T);
-  __shared__ float shared[2 * kThreads * kVec];
-  const int lane = threadIdx.x % lanes;
-  const int row0 = threadIdx.x / lanes;
-  const int rows_per_iter = kThreads / lanes;
-  const int tile_w = lanes * kVec;
-  const int tile_c0 = blockIdx.y * tile_w;
-  const int c0 = tile_c0 + lane * kVec;
-  const int64_t m_begin = blockIdx.x * rows_per_chunk;
-  const int64_t m_end =
-      m_begin + rows_per_chunk < n ? m_begin + rows_per_chunk : n;
-
-  float s1[kVec], s2[kVec];
-#pragma unroll
-  for (int j = 0; j < kVec; ++j) {
-    s1[j] = 0.0f;
-    s2[j] = 0.0f;
-  }
-  if (c0 < c) {
-    if (kVector) {  // c % kVec == 0 and x 16-byte aligned
-#pragma unroll 4
-      for (int64_t m = m_begin + row0; m < m_end; m += rows_per_iter) {
-        const uint4 raw = __ldg(reinterpret_cast<const uint4*>(x + m * c + c0));
-        const T* v = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-        for (int j = 0; j < kVec; ++j) {
-          const float f = to_f32(v[j]);
-          s1[j] += f;
-          s2[j] = fmaf(f, f, s2[j]);
-        }
-      }
-    } else {
-      for (int64_t m = m_begin + row0; m < m_end; m += rows_per_iter) {
-        const T* row = x + m * c;
-#pragma unroll
-        for (int j = 0; j < kVec; ++j) {
-          if (c0 + j < c) {
-            const float f = to_f32(row[c0 + j]);
-            s1[j] += f;
-            s2[j] = fmaf(f, f, s2[j]);
-          }
-        }
-      }
-    }
-  }
-
-  // rows of the block -> one value per channel, summed in row order
-  float* sh1 = shared;
-  float* sh2 = shared + rows_per_iter * tile_w;
-#pragma unroll
-  for (int j = 0; j < kVec; ++j) {
-    sh1[row0 * tile_w + lane * kVec + j] = s1[j];
-    sh2[row0 * tile_w + lane * kVec + j] = s2[j];
-  }
-  __syncthreads();
-  for (int t = threadIdx.x; t < tile_w; t += kThreads) {
-    const int ch = tile_c0 + t;
-    if (ch >= c) continue;
-    float a = 0.0f, b = 0.0f;
-    for (int r = 0; r < rows_per_iter; ++r) {
-      a += sh1[r * tile_w + t];
-      b += sh2[r * tile_w + t];
-    }
-    float* out = partial + blockIdx.x * int64_t(2) * c;
-    out[ch] = a;
-    out[c + ch] = b;
-  }
-}
-
-// Pass 2: out[col] = sum over chunks of partial[chunk][col], col < 2C, each
-// thread summing every kFinishLanes-th chunk, then the lanes in order.
-__global__ void __launch_bounds__(kFinishCols * kFinishLanes)
-bn_sums_finish_kernel(const float* __restrict__ partial,
-                      float* __restrict__ out, int64_t chunks, int width) {
-  __shared__ float shared[kFinishLanes][kFinishCols + 1];
-  const int col = blockIdx.x * kFinishCols + threadIdx.x;
-  float a = 0.0f;
-  if (col < width) {
-#pragma unroll 4
-    for (int64_t k = threadIdx.y; k < chunks; k += kFinishLanes) {
-      a += __ldg(partial + k * width + col);
-    }
-  }
-  shared[threadIdx.y][threadIdx.x] = a;
-  __syncthreads();
-  if (threadIdx.y == 0 && col < width) {
-    float s = 0.0f;
-    for (int r = 0; r < kFinishLanes; ++r) s += shared[r][threadIdx.x];
-    out[col] = s;
-  }
 }
 
 // K2b: dx[m, c] = g1[c] + (2 g2[c]) x[m, c], each operation rounded alone.
@@ -267,31 +434,19 @@ bn_sums_backward_kernel(const T* __restrict__ x, const float* __restrict__ g1,
 }
 
 template <typename T>
-int launch_sums(const void* x, int64_t n, int c, float* partial, float* out,
+int launch_sums(const void* x, const SumsPlan& p, float* scratch, float* out,
                 cudaStream_t stream) {
-  const Plan p = make_plan(n, c, sizeof(T));
-  if (p.chunks > 0) {
-    const dim3 grid(static_cast<unsigned int>(p.chunks), p.ctiles);
-    const T* xt = static_cast<const T*>(x);
-    if (c % p.vec == 0 && aligned16(x)) {
-      bn_sums_partial_kernel<T, true><<<grid, kThreads, 0, stream>>>(
-          xt, partial, n, c, p.lanes, p.rows_per_chunk);
-    } else {
-      bn_sums_partial_kernel<T, false><<<grid, kThreads, 0, stream>>>(
-          xt, partial, n, c, p.lanes, p.rows_per_chunk);
-    }
-  }
-  const int width = 2 * c;
-  const dim3 block(kFinishCols, kFinishLanes);
-  bn_sums_finish_kernel<<<(width + kFinishCols - 1) / kFinishCols, block, 0,
-                          stream>>>(partial, out, p.chunks, width);
+  const dim3 grid(static_cast<unsigned int>(p.chunks),
+                  static_cast<unsigned int>(p.tiles));
+  bn_sums_kernel<T><<<grid, kSumThreads, 0, stream>>>(
+      static_cast<const T*>(x), p, scratch, out);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_backward(const void* x, const float* g1, const float* g2, void* dx,
                     int64_t n, int c, cudaStream_t stream) {
-  const Plan p = make_plan(n, c, sizeof(T));
+  const Plan p = make_plan(c, sizeof(T));
   if (n == 0) return static_cast<int>(cudaSuccess);
   const int64_t most = (n + p.rows_per_iter - 1) / p.rows_per_iter;
   const int64_t want = (int64_t(kBlocksPerSm) * 2 * sm_count() + p.ctiles - 1) / p.ctiles;
@@ -308,28 +463,44 @@ int launch_backward(const void* x, const float* g1, const float* g2, void* dx,
   return static_cast<int>(cudaGetLastError());
 }
 
-int elem_bytes(int dtype) { return dtype == kF32 ? 4 : 2; }
+// What the kernel assumes of a plan; the wrapper's plan always holds it.
+// The body's vectors must start at a 16-byte boundary; with no super-row
+// (fewer elements than the head, or than one super-row) none is loaded.
+bool plan_fits(const SumsPlan& p, const void* x, int elem_bytes) {
+  const int vec = kVecBytes / elem_bytes;
+  return p.c > 0 && p.lanes > 0 && p.lanes <= kSumLanes &&
+         (p.lanes & (p.lanes - 1)) == 0 && p.width % p.c == 0 &&
+         p.width == p.vectors * vec && p.tiles * p.lanes >= p.vectors &&
+         p.tiles + 1 <= kMaxTickets && p.tiles <= 65535 && p.chunks >= 1 &&
+         p.chunks <= kMaxChunks &&
+         p.chunks * p.rows_per_chunk >= p.super_rows &&
+         p.head + p.super_rows * p.width <= p.n_elems &&
+         (p.super_rows == 0 ||
+          aligned16(static_cast<const char*>(x) + p.head * elem_bytes));
+}
 
 }  // namespace
 
-// Floats of scratch that mmhand_bn_sums needs for (n, c) of this dtype
-// (0 f32, 1 bf16, 2 f16); -1 for an unknown dtype.
-extern "C" int64_t mmhand_bn_sums_scratch(int64_t n, int c, int dtype) {
-  if (dtype != kF32 && dtype != kBF16 && dtype != kF16) return -1;
-  return make_plan(n, c, elem_bytes(dtype)).chunks * 2 * c;
-}
-
-// x: (n, c) row-major on the device; partial: mmhand_bn_sums_scratch floats;
-// out: (2, c) f32, (sum, sum_sq).  Launches on `stream` and returns
-// cudaGetLastError() (0 on success); it does not synchronise.
-extern "C" int mmhand_bn_sums(const void* x, int dtype, int64_t n, int c,
-                              float* partial, float* out, void* stream) {
+// x: (n, c) row-major on the device, of dtype 0 f32, 1 bf16, 2 f16; plan:
+// a host array of the int64 fields of ops/bn_stats.py `SumsPlan`; scratch:
+// its `scratch_floats` f32; out: (2, c) f32, (sum, sum_sq).  Launches on
+// `stream` and returns cudaGetLastError() (0 on success); it does not
+// synchronise.
+extern "C" int mmhand_bn_sums(const void* x, int dtype, const int64_t* plan,
+                              float* scratch, float* out, void* stream) {
+  SumsPlan p;
+  static_assert(kPlanFields == 10, "SumsPlan has 10 fields");
+  std::memcpy(&p, plan, sizeof(p));
+  const int elem_bytes = dtype == kF32 ? 4 : 2;
+  if ((dtype != kF32 && dtype != kBF16 && dtype != kF16) ||
+      !plan_fits(p, x, elem_bytes)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kF32: return launch_sums<float>(x, n, c, partial, out, s);
-    case kBF16: return launch_sums<__nv_bfloat16>(x, n, c, partial, out, s);
-    case kF16: return launch_sums<__half>(x, n, c, partial, out, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case kF32: return launch_sums<float>(x, p, scratch, out, s);
+    case kBF16: return launch_sums<__nv_bfloat16>(x, p, scratch, out, s);
+    default: return launch_sums<__half>(x, p, scratch, out, s);
   }
 }
 

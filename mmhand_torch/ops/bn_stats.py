@@ -14,12 +14,20 @@ a 4-D tensor in ``channels_last`` memory or a 5-D one in ``channels_last_3d``,
 which is the (N = B*H*W or B*D*H*W, C) row-major view, in float32, bfloat16
 or float16; anything else raises, with no silent copy.  Each wrapper counts
 its kernel launches in ``.launches``.
+
+K2's cut of the view (``sums_plan``: 16-byte loads at every C through
+super-rows of lcm(C, vec) elements, one wave of blocks) is decided
+here and passed to the kernel; ``bn_sums_by_plan`` sums under the same
+plan with the kernel's index arithmetic in plain PyTorch, so that the CPU
+tests reach it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -81,38 +89,184 @@ def rows_view(x: torch.Tensor) -> tuple[int, int]:
     return x.numel() // c, c
 
 
+VEC_BYTES = 16       # one load of K2
+THREADS = 1024       # threads of a K2 block, one block per SM
+MAX_LANES = 8        # threads across a channel tile
+MAX_CHUNKS = 256     # blocks along the rows of a tile
+MAX_TICKETS = 8192   # tiles + 1 at most
+
+
+class SumsPlan(NamedTuple):
+    """K2's cut of the flat (N * C) array, field for field ``SumsPlan`` in
+    csrc/bn_stats.cu.  The body after ``head`` elements is ``super_rows``
+    super-rows of ``width`` = lcm(C, vec) elements, each ``vectors``
+    16-byte loads, slot s holding channel (head + s) mod C; what follows is
+    the tail.  Block (chunk, tile) reads vectors tile * lanes + lane of
+    ``rows_per_chunk`` super-rows."""
+    n_elems: int
+    c: int
+    head: int
+    width: int
+    vectors: int
+    lanes: int
+    tiles: int
+    super_rows: int
+    chunks: int
+    rows_per_chunk: int
+
+    @property
+    def slots(self) -> int:
+        """Slots of one tile: its lanes' elements."""
+        return self.lanes * (self.width // self.vectors)
+
+    @property
+    def scratch_floats(self) -> int:
+        """f32 scratch: a (2, slots) partial per block, then the slot sums
+        of each tile."""
+        return (self.chunks + 1) * self.tiles * 2 * self.slots
+
+    @property
+    def tail(self) -> int:
+        """First element after the last whole super-row."""
+        return self.head + self.super_rows * self.width
+
+
+@functools.lru_cache(maxsize=4096)
+def sums_plan(n: int, c: int, elem_bytes: int, head: int,
+              sms: int) -> SumsPlan:
+    """K2's plan for a (n, c) view of ``elem_bytes`` elements whose first
+    ``head`` elements lie before a 16-byte boundary, on a card of ``sms``
+    SMs: k = vec / gcd(C, vec) rows make a super-row of whole vectors;
+    tiles of at most 8 lanes (128 bytes of a super-row) cover its vectors;
+    one wave of one block per SM shares the super-rows, each tile's blocks
+    along the rows, so that a tile's last block sums few partials."""
+    vec = VEC_BYTES // elem_bytes
+    total = n * c
+    head = min(head, total)
+    width = c * vec // math.gcd(c, vec)
+    vectors = width // vec
+    lanes = min(1 << (vectors - 1).bit_length(), MAX_LANES)
+    tiles = -(-vectors // lanes)
+    super_rows = (total - head) // width
+    most = max(1, -(-super_rows // (THREADS // lanes)))
+    chunks = min(max(1, sms // tiles), most, MAX_CHUNKS)
+    rows_per_chunk = max(1, -(-super_rows // chunks))
+    chunks = max(1, -(-super_rows // rows_per_chunk))
+    if tiles + 1 > MAX_TICKETS or tiles > 65535:
+        raise ValueError(f"bn_sums: no plan for C={c}: {tiles} channel tiles")
+    return SumsPlan(total, c, head, width, vectors, lanes, tiles, super_rows,
+                    chunks, rows_per_chunk)
+
+
+def bn_sums_by_plan(x: torch.Tensor, plan: SumsPlan
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sum, sum of squares) per channel of the (N, C) view of ``x`` as K2
+    computes them under ``plan``, with bn_sums_kernel's index arithmetic
+    (csrc/bn_stats.cu): block (chunk, tile) reads vector tile * lanes +
+    lane of its chunk's super-rows and stores its partial at scratch
+    chunk * tiles * 2 tw + tile * 2 tw; the tile's last block sums the
+    chunks in order; a C that is a multiple of vec maps slot s to channel
+    (head + s) mod C, any other C folds through ``fold``'s slots s0 + m C,
+    s0 = (ch - head) mod C, at (s & ~(tw - 1)) * 2 + (s & (tw - 1)); then
+    ``add_edges`` adds the head and the tail.  f32 sums, in another order
+    within a block than the kernel's."""
+    c, tw, head, tail = plan.c, plan.slots, plan.head, plan.tail
+    vec = plan.width // plan.vectors
+    flat = x.permute(0, *range(2, x.dim()), 1).reshape(-1).float()
+    row = plan.tiles * 2 * tw  # floats of one chunk's partials
+    scratch = torch.zeros(plan.scratch_floats)
+    body = flat[head:tail].view(plan.super_rows, plan.vectors, vec)
+    out = torch.zeros(2, c)
+    for tile in range(plan.tiles):
+        v = tile * plan.lanes + torch.arange(plan.lanes)
+        live = v < plan.vectors
+        for chunk in range(plan.chunks):
+            begin = chunk * plan.rows_per_chunk
+            rows = body[begin:min(begin + plan.rows_per_chunk,
+                                  plan.super_rows)][:, v[live]]
+            part = torch.zeros(2, plan.lanes, vec)
+            part[0, live] = rows.sum(0)
+            part[1, live] = (rows * rows).sum(0)
+            at = chunk * row + tile * 2 * tw
+            scratch[at:at + 2 * tw] = part.reshape(-1)
+        red = torch.zeros(2 * tw)
+        for chunk in range(plan.chunks):
+            at = chunk * row + tile * 2 * tw
+            red += scratch[at:at + 2 * tw]
+        if plan.width == c:
+            s = tile * tw + torch.arange(tw)
+            keep = s < plan.width
+            ch = (head + s[keep]) % c if head else s[keep]
+            out[0, ch] = red[:tw][keep]
+            out[1, ch] = red[tw:][keep]
+        else:
+            at = plan.chunks * row + tile * 2 * tw
+            scratch[at:at + 2 * tw] = red
+    if plan.width != c:
+        ch = torch.arange(c)
+        s0 = ((ch - head) % c + c) % c if head else ch
+        s = s0[:, None] + torch.arange(plan.width // c) * c
+        at = (s & ~(tw - 1)) * 2 + (s & (tw - 1))
+        slots = scratch[plan.chunks * row:]
+        out[0] = slots[at].sum(1)
+        out[1] = slots[at + tw].sum(1)
+    # add_edges: channel ch's elements ch, ch + C, ... of the head, and
+    # tail + ((ch - tail) mod C), ... of the tail; index n_elems is a zero
+    padded = torch.cat([flat, flat.new_zeros(1)])
+    ch = torch.arange(c)
+    for first, lo, stop in ((ch, 0, head),
+                            (tail + ((ch - tail) % c + c) % c, tail,
+                             plan.n_elems)):
+        e = first[:, None] + torch.arange(-(-(stop - lo) // c)) * c
+        e = torch.where(e < stop, e, plan.n_elems)
+        vals = padded[e]
+        out[0] += vals.sum(1)
+        out[1] += (vals * vals).sum(1)
+    return out[0], out[1]
+
+
 @functools.lru_cache(maxsize=None)
 def _kernels():
     from mmhand_torch.ops._build import load_library
 
     lib = load_library()
-    scratch = lib.mmhand_bn_sums_scratch
-    scratch.argtypes = [ctypes.c_int64, ctypes.c_int, ctypes.c_int]
-    scratch.restype = ctypes.c_int64
     forward = lib.mmhand_bn_sums
-    forward.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
-                        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                        ctypes.c_void_p]
+    forward.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     forward.restype = ctypes.c_int
     backward = lib.mmhand_bn_sums_backward
     backward.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                          ctypes.c_int, ctypes.c_void_p]
     backward.restype = ctypes.c_int
-    return scratch, forward, backward
+    return forward, backward
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan_args(plan: SumsPlan) -> ctypes.Array:
+    return (ctypes.c_int64 * len(plan))(*plan)
 
 
 def _bn_sums_cuda(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     n, c = rows_view(x)
-    code = _DTYPE_CODES[x.dtype]
-    scratch_floats, forward, _ = _kernels()
+    ptr, size = x.data_ptr(), x.element_size()
+    if ptr % size:
+        raise ValueError("bn_sums: x is not aligned to its element size")
+    plan = sums_plan(n, c, size, -ptr % VEC_BYTES // size,
+                     _sm_count(x.device.index))
+    forward, _ = _kernels()
     out = torch.empty(2, c, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        scratch = torch.empty(scratch_floats(n, c, code),
-                              dtype=torch.float32, device=x.device)
+        scratch = torch.empty(plan.scratch_floats, dtype=torch.float32,
+                              device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = forward(x.data_ptr(), code, n, c, scratch.data_ptr(),
-                      out.data_ptr(), stream)
+        err = forward(ptr, _DTYPE_CODES[x.dtype], _plan_args(plan),
+                      scratch.data_ptr(), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"bn_sums kernel launch failed: cudaError {err}")
     bn_sums.launches += 1
@@ -127,7 +281,7 @@ def _bn_sums_backward_cuda(x: torch.Tensor, g1: torch.Tensor,
     if g1.shape != (c,) or g2.shape != (c,):
         raise ValueError(f"bn_sums_backward: gradients must be ({c},), got "
                          f"{tuple(g1.shape)} and {tuple(g2.shape)}")
-    _, _, backward = _kernels()
+    _, backward = _kernels()
     dx = torch.empty_like(x, memory_format=_layout(x))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -173,20 +173,46 @@ def test_prepare_batch_on_card_matches_cpu(cuda):
                                    rtol=0, atol=1e-6)
 
 
+# K2's edge cases: C not a multiple of the vector width with N mod k != 0
+# (N = 3 * 7 * 9 = 189; k = 2, 4 or 8), then an unaligned base (``big[1:]``
+# of a C=1 tensor with H*W odd: 63 elements, 252 bytes in), and one element
+# at an unaligned base, fewer than the head before the 16-byte boundary
+BN_EDGE_CASES = [((3, c, 7, 9), dtype, 0) for c in (1, 2, 3, 5, 21)
+                 for dtype in (torch.float32, torch.bfloat16)]
+BN_EDGE_CASES += [((5, 1, 7, 9), torch.float32, 1),
+                  ((5, 1, 7, 9), torch.bfloat16, 1),
+                  ((9, 3, 5, 7), torch.float16, 1),
+                  ((2, 1, 1, 1), torch.float32, 1),
+                  ((2, 1, 1, 1), torch.bfloat16, 1)]
+
+
+def _bn_input(shape, dtype, offset, seed, device):
+    """A channels_last tensor of ``shape`` from a seed, or with ``offset``
+    the tensor without its first ``offset`` images (a view at an offset),
+    and the generator, to draw more from."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    big = (torch.randn(shape, generator=gen, device=device) * 1.5 + 0.3).to(
+        dtype).contiguous(memory_format=torch.channels_last)
+    x = big[offset:]
+    assert x.is_contiguous(memory_format=torch.channels_last)
+    return x, gen
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,dtype", [
-    ((16, 64, 256, 256), torch.bfloat16),   # the train step's largest site
-    ((16, 64, 256, 256), torch.float16),    # the same in the fp16 slice
-    ((16, 512, 64, 64), torch.bfloat16),    # a PATBlock attention stream
-    ((4, 128, 32, 32), torch.float16),
-    ((3, 29, 37, 41), torch.float32)])      # ragged N and C
-def test_bn_kernels_match_plain(cuda, shape, dtype):
+@pytest.mark.parametrize("shape,dtype,offset", [
+    ((16, 64, 256, 256), torch.bfloat16, 0),  # the train step's largest site
+    ((16, 64, 256, 256), torch.float16, 0),   # the same in the fp16 slice
+    ((16, 512, 64, 64), torch.bfloat16, 0),   # a PATBlock attention stream
+    ((4, 128, 32, 32), torch.float16, 0),
+    ((3, 29, 37, 41), torch.float32, 0)]      # ragged N and C
+    + BN_EDGE_CASES)
+def test_bn_kernels_match_plain(cuda, shape, dtype, offset):
     """K2 against the plain sums: f32 sums in another order, held relative
     to sum |x| and sum x^2 at 1e-5.  K2b against the plain formula: the same
     operations in the same order, so bit for bit."""
-    gen = torch.Generator(device=cuda).manual_seed(3)
-    x = (torch.randn(shape, generator=gen, device=cuda) * 1.5 + 0.3).to(
-        dtype).contiguous(memory_format=torch.channels_last)
+    x, gen = _bn_input(shape, dtype, offset, 3, cuda)
+    if offset:
+        assert x.data_ptr() % 16
     before = (bn_sums.launches, bn_sums_backward.launches)
     s1, s2 = bn_sums(x)
     g1 = torch.randn(shape[1], generator=gen, device=cuda)
@@ -203,6 +229,83 @@ def test_bn_kernels_match_plain(cuda, shape, dtype):
     assert torch.equal(dx, bn_sums_backward_ref(x, g1, g2))
     again = bn_sums(x)  # no atomics: the same sums on every run
     assert torch.equal(again[0], s1) and torch.equal(again[1], s2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,offset", [
+    ((16, 256, 64, 64), torch.bfloat16, 0), ((32, 1, 128, 128), torch.float32, 0)]
+    + BN_EDGE_CASES)
+def test_bn_sums_bit_identical_across_calls(cuda, shape, dtype, offset):
+    """Two calls of K2 on one input give the same bits: whichever block
+    finishes last, the partials are added in one fixed order."""
+    x, _ = _bn_input(shape, dtype, offset, 5, cuda)
+    first = [t.clone() for t in bn_sums(x)]
+    for _ in range(2):
+        again = bn_sums(x)
+        assert torch.equal(again[0], first[0]) and torch.equal(again[1], first[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,offset", [
+    ((16, 256, 64, 64), torch.bfloat16, 0), ((8, 1, 256, 256), torch.float32, 0),
+    ((5, 1, 7, 9), torch.float32, 1), ((3, 21, 7, 9), torch.bfloat16, 0)])
+def test_bn_sums_in_cuda_graph_equal_eager(cuda, shape, dtype, offset):
+    """K2 captured three times over in a CUDA graph and replayed three
+    times equals eager K2 bit for bit every time: each launch starts from
+    tickets the one before reset, with no memset in the graph."""
+    x, _ = _bn_input(shape, dtype, offset, 6, cuda)
+    want = [t.clone() for t in bn_sums(x)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        bn_sums(x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = bn_sums.launches
+    with torch.cuda.graph(graph):
+        outs = [bn_sums(x) for _ in range(3)]
+    assert bn_sums.launches == before + 3
+    for _ in range(3):
+        for o in outs:
+            o[0].zero_()
+            o[1].zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for s1, s2 in outs:
+            assert torch.equal(s1, want[0]) and torch.equal(s2, want[1])
+    again = bn_sums(x)
+    assert torch.equal(again[0], want[0]) and torch.equal(again[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,offset", BN_EDGE_CASES)
+def test_bn_backward_equals_plain_at_edge_cases(cuda, shape, dtype, offset):
+    """K2b, unchanged beside the new K2, still equals the plain formula bit
+    for bit at K2's edge cases, the unaligned base included."""
+    x, gen = _bn_input(shape, dtype, offset, 7, cuda)
+    g1 = torch.randn(shape[1], generator=gen, device=cuda)
+    g2 = torch.randn(shape[1], generator=gen, device=cuda)
+    dx = bn_sums_backward(x, g1, g2)
+    assert dx.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(dx, bn_sums_backward_ref(x, g1, g2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_sums_on_empty_view_at_unaligned_base(cuda, dtype):
+    """An empty view at an unaligned base gives zero sums in one launch,
+    and K2b an empty gradient."""
+    x, _ = _bn_input((2, 3, 1, 1), dtype, 1, 8, cuda)
+    empty = x[1:]
+    assert empty.numel() == 0
+    before = bn_sums.launches
+    s1, s2 = bn_sums(empty)
+    assert bn_sums.launches == before + 1
+    assert torch.equal(s1, torch.zeros(3, device=cuda))
+    assert torch.equal(s2, torch.zeros(3, device=cuda))
+    dx = bn_sums_backward(empty, torch.ones(3, device=cuda),
+                          torch.ones(3, device=cuda))
+    assert dx.shape == empty.shape
 
 
 @pytest.mark.cuda
@@ -731,15 +834,19 @@ def test_pose_resnet_train_bn_on_card_equals_plain(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("channels", [1, 21, 16])
+@pytest.mark.parametrize("shape", [
+    (2, 1, 17, 20, 24), (2, 21, 17, 20, 24), (2, 16, 17, 20, 24),
+    (3, 1, 5, 7, 9), (3, 2, 5, 7, 9), (3, 3, 5, 7, 9), (3, 5, 5, 7, 9),
+    (3, 21, 5, 7, 9)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_bn_kernels_on_5d_input_match_plain(cuda, channels, dtype):
+def test_bn_kernels_on_5d_input_match_plain(cuda, shape, dtype):
     """K2 and K2b on a 5-D ``channels_last_3d`` tensor, the voxel nets'
-    layout, at the masked scalar path's widths (C 1 and 21) and a vector
-    one (16), held as ``test_bn_kernels_match_plain`` holds them; a 5-D
-    tensor in another layout raises."""
+    layout, at widths that are no multiple of the vector width (C 1, 2, 3,
+    5 and 21; at N = 3 * 5 * 7 * 9 = 945, N mod k != 0) and a vector one
+    (16), held as ``test_bn_kernels_match_plain`` holds them; a 5-D tensor
+    in another layout raises."""
+    channels = shape[1]
     gen = torch.Generator(device=cuda).manual_seed(channels)
-    shape = (2, channels, 17, 20, 24)
     x = (torch.randn(shape, generator=gen, device=cuda) * 1.5 + 0.3).to(
         dtype).contiguous(memory_format=torch.channels_last_3d)
     before = (bn_sums.launches, bn_sums_backward.launches)
