@@ -64,12 +64,24 @@ Between the train and evaluation paths, the rest of the trainer:
     launches this script as one rank (``--dp-worker``), which runs 3 flagship
     steps through ``train(distributed=True)``; prints its step beside the
     single-process step and its all-reduces per step.
-11. Two ranks on the one card over gloo (``--gloo-worker``): one toy DP step
-    against the single-process step on the full batch.
+11. Two ranks on the one card over gloo (``--gloo-worker``): the dry run's
+    three toy DP steps (``parallel.dryrun``: the GAN, HPE ``hpm`` at 32 px
+    with the full-width CPM nets, hand3d lifting at crop 32; f32, TF32 off,
+    dropout off), each against the single-process step on the full batch.
+12. The kill-and-resume demo (``mmhand_torch.scripts.longrun_demo``) at the
+    flagship's width (batch 16, 256 px, bf16, the 64-item block tree):
+    leg 1 saves at step 950, after the loss has left its plateau, and is
+    killed by SIGKILL at step 960; leg 2 resumes at 950 for 50 steps; the
+    JAX tool's continuity, descent and live-plot checks at its thresholds,
+    and the loss before the kill already below 0.7 of the first tenth's
+    (so that a re-initialized generator, back near the start, would fail
+    continuity); SSIM of the trained generator on the training pairs; leg
+    2's K1, K2 and K2b launches as its trainer prints them (two K1 and 101
+    K2/K2b per step).
 
 After the evaluation path, the HPE slice and the ratio study:
 
-12. HPE train: an RHD-layout crop tree (64 random images at 256 px, packed
+13. HPE train: an RHD-layout crop tree (64 random images at 256 px, packed
     depth, annotation.pickle), then ``mmhand_torch.scripts.train_hpe.main
     --model hpm`` at full width (Hpm2d and Hpm3d, bf16 autocast) at batch
     32 for 6 steps, counting the kernel launches of that run (K1 once per
@@ -77,10 +89,10 @@ After the evaluation path, the HPE slice and the ratio study:
     at sigma 5 on the batch's keypoints at (32, 256, 256, 21) against its
     plain version; times one step (CUDA events) against its FLOP count and
     profiles it.
-13. HPE test: ``mmhand_torch.scripts.test_hpe.main`` on that checkpoint,
+14. HPE test: ``mmhand_torch.scripts.test_hpe.main`` on that checkpoint,
     ``--model hpm`` and ``hpm3d``; every score finite (random weights, so
     structural only).
-14. The ratio study: ``python -m mmhand_torch.scripts.mm_train_ratio`` at
+15. The ratio study: ``python -m mmhand_torch.scripts.mm_train_ratio`` at
     ratios 0.5 and 1.0 on that tree (the flagship GAN one epoch at batch
     32, aug, the HPE one epoch, test_hpe) with ``--with_hand3d
     --hand3d_iters 4`` (at ratio 0.5: create_hand3d_db over the generated
@@ -93,25 +105,25 @@ After the evaluation path, the HPE slice and the ratio study:
 After the ratio study, stages 1-2 from raw frames and the rest of the
 baseline zoo:
 
-15. Preprocessing: raw RHD-layout frames it writes (128 training and 32
+16. Preprocessing: raw RHD-layout frames it writes (128 training and 32
     evaluation frames of 320x320, two hands each: the split into left and
     right, the right hand's flip, rejected hands and dropped masks run) and
     an STB-layout source (B1 and B4, SK_color, BB_left and BB_right 640x480
     frames, ``labels/*.mat``) through ``mmhand_torch.scripts.create_rhd_db``
     and ``create_stb_db`` to 256 px crops; checks every crop's keypoints
     inside it and B4 only under ``test/``, and prints crops per second.
-16. The exports on the RHD training crops: ``export_baseline_formats``
+17. The exports on the RHD training crops: ``export_baseline_formats``
     pairs, keypoints and pix2pixhd (K3 once per 64 labels, one batch held
     against the plain rasterizer run on the CPU bit for bit), then
     ``generate_pose_maps`` at 256x256, sigma 6.
-17. CSV training: ``scripts.train --dataset MMHand`` on that chain, the
+18. CSV training: ``scripts.train --dataset MMHand`` on that chain, the
     flagship Config() at batch 16, bf16, 6 steps: finite losses and
     parameters, 101 K2 and K2b launches per step and no K1; one step by
     CUDA events and the host's read of one prerendered batch.
-18. PATN2 scoring: ``bench_baselines --arch patn2`` (ngf 64, 9 blocks) over
+19. PATN2 scoring: ``bench_baselines --arch patn2`` (ngf 64, 9 blocks) over
     the RHD evaluation crops at eval batch 8: finite scores, K1 twice per
     batch, K1 held against its plain version on a batch's keypoints.
-19. The library nets: PoseResNet-50 at batch 32 and 256 px (an eval
+20. The library nets: PoseResNet-50 at batch 32 and 256 px (an eval
     forward; a train-mode forward and backward with K2/K2b at its 56
     BatchNorms; K2 over those inputs against ``torch.batch_norm_stats``;
     at batch 2 in float32 the output and running statistics against the
@@ -119,7 +131,7 @@ baseline zoo:
     forward); NLayerDiscriminator, PixelDiscriminator and PATN2Stream
     against the CPU and in train mode on the card; every init_type on the
     flagship generator, each conv weight's std against its formula.
-20. The hand3d stack (ColorHandPose3D), at the scripts' 256 px, crop 256,
+21. The hand3d stack (ColorHandPose3D), at the scripts' 256 px, crop 256,
     batch 8, float32: the five nets, the 6-tuple, derive_batch,
     single_obj_scoremap and crop_and_resize on the card against the CPU at
     64 px with TF32 off (after phase 3); ``train_hand3d.main`` for
@@ -131,7 +143,7 @@ baseline zoo:
     ``run_hand3d`` on two crops and ``handpose_judge`` with both judges.
     The hand3d nets hold no BatchNorm and no kernel of the port: their
     paths launch none.
-21. The MSRA/V2V group: an MSRA15-layout tree (16 frames of 320x240, a
+22. The MSRA/V2V group: an MSRA15-layout tree (16 frames of 320x240, a
     hand near 350 mm) through ``MSRAHandDataset`` and ``voxel_sample``;
     ``V2VVoxelization`` (64^3, cube 200 mm, augmentation) on 8 samples on
     the card against the CPU with the same draws (coordinates within 1e-4
@@ -205,6 +217,16 @@ TRAIN = dict(steps=6, batch=16)
 # the resume and NCCL slices: 3 flagship steps each (3 + 3 for resume)
 RESUME_STEPS = 3
 BN_PER_STEP = 47 + 2 * 9 + 2 * 9 + 2 * 9
+# the kill-and-resume demo at the flagship's width (batch 16, 256 px, bf16,
+# the 64-item block tree): leg 1 saves at step 950 and is killed at its
+# 96th print of 10 (step 960); leg 2 resumes at step 950 and runs 50 more.
+# On this tree the pair_L1loss holds near 8 until the generator starts to
+# tell the targets apart, at a step that varies from run to run (it first
+# fell below 0.7 of the first tenth's mean at steps 450 to 780 in the runs
+# PERF.md lists), so the kill comes late: continuity is then read where a
+# generator that restarted from scratch (near 8) would fail it
+LONGRUN = dict(items=64, save_every=950, print_freq=10, kill_after_prints=96,
+               steps2=50)
 # the evaluation slice: 64 pairs at 256 px; evaluate_gan at batch 16, the
 # baselines at batch 8 (the JAX scripts' defaults)
 EVAL = dict(n_items=64, gan_batch=16, baseline_batch=8)
@@ -927,31 +949,34 @@ def small_reference_phase():
           f"max_abs_err {err}")
 
 
-def nets_agree(got, want, updates: int, lr: float) -> str:
-    """The three networks of two train systems after ``updates`` Adam updates
-    each: at most 0.5% of a network's elements outside rtol 1e-3 / atol 2e-5
-    (running statistics atol 1e-5), none more than 2 lr per update apart.
-    Adam divides each gradient by its own magnitude, so an element whose
+def params_agree(name: str, a: dict, b: dict, updates: int, lr: float) -> str:
+    """Two state_dicts of one network after ``updates`` Adam updates each: at
+    most 0.5% of its elements outside rtol 1e-3 / atol 2e-5 (running
+    statistics atol 1e-5), none more than 2 lr per update apart.  Adam
+    divides each gradient by its own magnitude, so an element whose
     gradient is near zero takes an update that f32 rounding decides
     (tests/test_torch_train.py).  Returns a summary."""
-    summary = []
-    for name in ("generator", "d_pb", "d_pp"):
-        a = getattr(got, name).state_dict()
-        b = getattr(want, name).state_dict()
-        outside = total = 0
-        worst = 0.0
-        for k, v in b.items():
-            if k.endswith("num_batches_tracked"):
-                continue
-            diff = (a[k].detach().cpu().float() - v.detach().cpu().float()).abs()
-            atol = 1e-5 if "running" in k else 2e-5
-            outside += int((diff > atol + 1e-3 * v.detach().cpu().abs()).sum())
-            total += v.numel()
-            worst = max(worst, float(diff.max()))
-        check(outside <= 0.005 * total and worst <= 2 * lr * updates,
-              f"{name}: {outside} of {total} elements differ, worst {worst}")
-        summary.append(f"{name} {outside}/{total} outside, max {worst:.3g}")
-    return "; ".join(summary)
+    outside = total = 0
+    worst = 0.0
+    for k, v in b.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        diff = (a[k].detach().cpu().float() - v.detach().cpu().float()).abs()
+        atol = 1e-5 if "running" in k else 2e-5
+        outside += int((diff > atol + 1e-3 * v.detach().cpu().abs()).sum())
+        total += v.numel()
+        worst = max(worst, float(diff.max()))
+    check(outside <= 0.005 * total and worst <= 2 * lr * updates,
+          f"{name}: {outside} of {total} elements differ, worst {worst}")
+    return f"{name} {outside}/{total} outside, max {worst:.3g}"
+
+
+def nets_agree(got, want, updates: int, lr: float) -> str:
+    """``params_agree`` for the three networks of two train systems."""
+    return "; ".join(params_agree(name, getattr(got, name).state_dict(),
+                                  getattr(want, name).state_dict(), updates,
+                                  lr)
+                     for name in ("generator", "d_pb", "d_pp"))
 
 
 def small_train_phase():
@@ -1709,37 +1734,89 @@ def nccl_phase(tmp: Path, single_step_ms: float) -> dict:
     return launches
 
 
-def gloo_worker(out: str) -> None:
-    """One of two ranks on the one card over gloo: one toy DP step (f32,
-    TF32 off, dropout off, pool 0) on this rank's half of the batch; rank 0
-    saves the three nets and the metrics."""
+def hpe_toy_config():
+    """The dry run's HPE trainer (32 px, full-width CPM nets) in float32."""
+    from mmhand_torch.config import Config, ModelConfig, PrecisionConfig
+
+    return Config(model=ModelConfig(fine_size=32),
+                  precision=PrecisionConfig(compute_dtype="float32"))
+
+
+def lifting_system(distributed: bool = False):
+    """The dry run's hand3d lifting net (proposed, crop 32) on the card,
+    its dropout off (keep 1: every element kept and divided by 1)."""
+    from mmhand_torch.hand3d import Hand3DSystem
+
+    system = Hand3DSystem("lifting", "proposed", crop_size=32, device="cuda",
+                          seed=3, distributed=distributed)
+    system.module.PosePrior.KEEP = system.module.ViewpointNet.KEEP = 1.0
+    return system
+
+
+def gloo_legs(rank: int, world: int, distributed: bool) -> dict:
+    """The three toy DP steps of ``parallel.dryrun`` on the card (f32, TF32
+    off, dropout off, pool 0), on rank ``rank``'s items of the global batch
+    (all of them for world 1): {leg: (metrics, network state_dicts)}."""
     import warnings
 
+    import torch
+
+    from mmhand_torch.hand3d import make_hand3d_train_step
+    from mmhand_torch.hpe import HPESystem, make_hpe_train_step
+    from mmhand_torch.parallel.dryrun import hand3d_batch, hpe_batch
+    from mmhand_torch.train.state import build_system
+    from mmhand_torch.train.step import make_train_step
+
+    mine = slice(2 * rank, 2 * rank + 2) if world > 1 else slice(None)
+
+    def cuda(batch):
+        return {k: torch.from_numpy(v[mine]).cuda() for k, v in batch.items()}
+
+    cfg = toy_config(pool_size=0, dropout=False)
+    legs = {}
+    with tf32_off(), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        gan = build_system(cfg, "cuda", distributed=distributed)
+        full = toy_batches(1, 4)[0]
+        metrics = make_train_step(gan)({k: v[mine] for k, v in full.items()},
+                                       cfg.optim.lr)
+        legs["gan"] = ({k: float(v) for k, v in metrics.items()},
+                       {n: getattr(gan, n).state_dict()
+                        for n in ("generator", "d_pb", "d_pp")})
+        del gan
+        hpe = HPESystem(hpe_toy_config(), "hpm", "cuda",
+                        distributed=distributed)
+        metrics = make_hpe_train_step(hpe)(cuda(hpe_batch(4)),
+                                           hpe.config.optim.lr)
+        legs["hpe"] = ({k: float(v) for k, v in metrics.items()},
+                       {n: getattr(hpe, n).state_dict()
+                        for n in ("hpm2d", "hpm3d")})
+        del hpe
+        lift = lifting_system(distributed)
+        loss = make_hand3d_train_step(lift)(cuda(hand3d_batch(4)))
+        legs["hand3d"] = ({"loss": float(loss)},
+                          {"lifting": lift.module.state_dict()})
+    return legs
+
+
+def gloo_worker(out: str) -> None:
+    """One of two ranks on the one card over gloo: the three toy DP steps
+    (``gloo_legs``) on this rank's half of the batch; rank 0 saves the
+    networks, the metrics and the kernels' launches."""
     import torch
     import torch.distributed as dist
 
     from mmhand_torch.parallel import init_distributed
-    from mmhand_torch.train.state import build_system
-    from mmhand_torch.train.step import make_train_step
 
     init_distributed("cpu")  # gloo, with the tensors on the card
     try:
         rank = dist.get_rank()
-        cfg = toy_config(pool_size=0, dropout=False)
         counters = kernel_counters()
-        with tf32_off(), warnings.catch_warnings():
-            warnings.simplefilter("ignore")
-            system = build_system(cfg, "cuda", distributed=True)
-            for f in counters.values():
-                f.launches = 0
-            full = toy_batches(1, 4)[0]
-            metrics = make_train_step(system)(
-                {k: v[2 * rank:2 * rank + 2] for k, v in full.items()},
-                cfg.optim.lr)
+        for f in counters.values():
+            f.launches = 0
+        legs = gloo_legs(rank, dist.get_world_size(), True)
         if rank == 0:
-            torch.save({"nets": {n: getattr(system, n).state_dict()
-                                 for n in ("generator", "d_pb", "d_pp")},
-                        "metrics": {k: float(v) for k, v in metrics.items()},
+            torch.save({"legs": legs,
                         "launches": {k: f.launches
                                      for k, f in counters.items()}}, out)
     finally:
@@ -1747,16 +1824,13 @@ def gloo_worker(out: str) -> None:
 
 
 def gloo_phase(tmp: Path) -> dict:
-    """Two ranks on the one card over gloo, one toy DP step, against the
-    single-process step on the full batch on the card; returns rank 0's
-    kernel launches."""
-    import warnings
-
+    """Two ranks on the one card over gloo, the GAN, HPE (hpm) and hand3d
+    lifting DP steps, each against the single-process step on the full batch
+    on the card; returns rank 0's kernel launches."""
     import torch
 
+    from mmhand_torch.hand3d.system import TRAIN_PARA_LIFTING
     from mmhand_torch.parallel.dryrun import launch
-    from mmhand_torch.train.state import build_system
-    from mmhand_torch.train.step import make_train_step
 
     out = tmp / "gloo.pt"
     start = time.perf_counter()
@@ -1764,22 +1838,87 @@ def gloo_phase(tmp: Path) -> dict:
            timeout=300)
     seconds = time.perf_counter() - start
     r = torch.load(out, weights_only=True)
-    cfg = toy_config(pool_size=0, dropout=False)
-    with tf32_off(), warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        single = build_system(cfg, "cuda")
-        want = make_train_step(single)(toy_batches(1, 4)[0], cfg.optim.lr)
-        dp = build_system(cfg, "cpu")
-    for name, sd in r["nets"].items():
-        getattr(dp, name).load_state_dict(sd)
-    for k, v in want.items():
-        check(abs(r["metrics"][k] - float(v)) <= 2e-4 * (1 + abs(float(v))),
-              f"gloo DP loss {k}: {r['metrics'][k]} against {float(v)}")
-    summary = nets_agree(dp, single, 1, cfg.optim.lr)
-    print(f"two ranks on the card over gloo ({seconds:.1f} s with start-up): "
-          f"one toy DP step against the full-batch step: {summary}; rank 0 "
-          f"launches {r['launches']}")
+    start = time.perf_counter()
+    want = gloo_legs(0, 1, False)
+    single_s = time.perf_counter() - start
+    lrs = {"gan": toy_config(0).optim.lr, "hpe": hpe_toy_config().optim.lr,
+           "hand3d": TRAIN_PARA_LIFTING["lr"][0]}
+    summary = []
+    for leg, (metrics, nets) in want.items():
+        got_metrics, got_nets = r["legs"][leg]
+        for k, v in metrics.items():
+            check(abs(got_metrics[k] - v) <= 2e-4 * (1 + abs(v)),
+                  f"gloo DP {leg} loss {k}: {got_metrics[k]} against {v}")
+        agree = "; ".join(params_agree(f"{leg} {n}", got_nets[n], sd, 1,
+                                       lrs[leg]) for n, sd in nets.items())
+        summary.append(f"{leg}: {got_metrics} against {metrics}; {agree}")
+    print(f"two ranks on the card over gloo ({seconds:.1f} s with start-up; "
+          f"the three single-process steps {single_s:.1f} s): one toy DP "
+          f"step of each leg against its full-batch step: "
+          + " | ".join(summary) + f"; rank 0 launches {r['launches']}")
     return r["launches"]
+
+
+def longrun_phase(tmp: Path) -> dict:
+    """``mmhand_torch.scripts.longrun_demo`` at the flagship's width: leg 1
+    killed by SIGKILL past a save point, leg 2 resumed from that older
+    checkpoint, the JAX tool's three checks at its thresholds, SSIM on the
+    trained pairs.  Returns the kernels' launches: leg 2's, as its trainer
+    printed them, and the SSIM pass's, counted here."""
+    import gc
+
+    import torch
+
+    from mmhand_torch.scripts import longrun_demo
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the trainers' processes need the card
+    argv = ["--dir", str(tmp / "longrun"), "--device", "cuda",
+            "--fineSize", str(FULL["size"]),
+            "--batchSize", str(TRAIN["batch"])]
+    for k, v in LONGRUN.items():
+        argv += [f"--{k}", str(v)]
+    counters = kernel_counters()
+    for f in counters.values():
+        f.launches = 0
+    start = time.perf_counter()
+    out = longrun_demo.demo(argv)  # prints the demo's JSON line
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    ssim_launches = {k: f.launches for k, f in counters.items()}
+    leg2, steps2 = out["leg2_launches"], LONGRUN["steps2"]
+    every = LONGRUN["save_every"]
+    check(out["leg1_returncode"] == -9, f"leg 1 ended with "
+          f"{out['leg1_returncode']}, not by SIGKILL")
+    check(0 < out["resumed_step"] < out["leg1_last_logged_step"]
+          and out["resumed_step"] % every == 0,
+          f"leg 2 resumed at step {out['resumed_step']}, leg 1 logged up to "
+          f"{out['leg1_last_logged_step']}: not a save point past the kill")
+    check(out["final_step"] == out["resumed_step"] + steps2,
+          f"leg 2 ended at step {out['final_step']}")
+    check(out["continuity_ok"] and out["descent_ok"] and out["plot_ok"],
+          f"longrun checks {out}")
+    check(out["pair_L1_before_kill"] < 0.7 * out["pair_L1_start"],
+          f"the loss before the kill is still near its start, where "
+          f"continuity cannot tell a resume from a restart: {out}")
+    check(math.isfinite(out["ssim_train_pairs"]), f"SSIM {out}")
+    # K1 renders P1 and P2: two launches per step and per SSIM batch
+    check(leg2 is not None and leg2["gaussian_heatmaps"] == 2 * steps2
+          and leg2["bn_sums"] == leg2["bn_sums_backward"]
+          == BN_PER_STEP * steps2, f"leg 2's launches {leg2}")
+    check(ssim_launches["gaussian_heatmaps"]
+          == 2 * -(-LONGRUN["items"] // TRAIN["batch"]),
+          f"the SSIM pass's launches {ssim_launches}")
+    print(f"longrun demo ({seconds:.1f} s): leg 1 {out['leg1_seconds']:.1f} s, "
+          f"rc {out['leg1_returncode']} after step "
+          f"{out['leg1_last_logged_step']}; leg 2 {out['leg2_seconds']:.1f} s "
+          f"from step {out['resumed_step']} to {out['final_step']}; "
+          f"pair_L1loss {out['pair_L1_start']:.4f} -> "
+          f"{out['pair_L1_floor']:.4f}, {out['pair_L1_before_kill']:.4f} "
+          f"before the kill, {out['pair_L1_after_resume']:.4f} after, below "
+          f"0.7 of the start from step {out['descent_first_step']}; SSIM "
+          f"{out['ssim_train_pairs']:.4f}; leg 2 launches {leg2}")
+    return {k: v + leg2.get(k, 0) for k, v in ssim_launches.items()}
 
 
 def jointsmap_case(name: str, batch: int, height: int, width: int):
@@ -3591,6 +3730,18 @@ def msra_v2v_phase(tmp: Path) -> dict:
     return total
 
 
+PHASE_SECONDS: dict[str, float] = {}
+
+
+def timed(phase, *args):
+    """``phase(*args)``, its seconds on the host clock kept under its
+    name."""
+    start = time.perf_counter()
+    out = phase(*args)
+    PHASE_SECONDS[phase.__name__] = time.perf_counter() - start
+    return out
+
+
 def main() -> int:
     if not (ROOT / "mmhand_torch" / "__init__.py").exists():
         print("chip_smoke: mmhand_torch/ is not beside this script",
@@ -3619,39 +3770,40 @@ def main() -> int:
     print(f"build: {time.perf_counter() - start:.3f} s "
           f"({'compiled with nvcc' if fresh else 'already built'})")
 
-    k1 = kernel_phase()
-    k2, k2b = bn_kernel_phase()
-    bn_site_phase()
-    k3 = jointsmap_kernel_phase()
-    small_reference_phase()
-    small_train_phase()
-    small_eval_phase()
-    hand3d_reference_phase()
+    k1 = timed(kernel_phase)
+    k2, k2b = timed(bn_kernel_phase)
+    timed(bn_site_phase)
+    k3 = timed(jointsmap_kernel_phase)
+    timed(small_reference_phase)
+    timed(small_train_phase)
+    timed(small_eval_phase)
+    timed(hand3d_reference_phase)
     paths = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = Path(tmp)
-        gen_k1 = slice_phase(tmp)
+        gen_k1 = timed(slice_phase, tmp)
         check(gen_k1 > 0, "K1 was not launched on the generation path")
         paths["generation"] = {"gaussian_heatmaps": gen_k1}
-        paths["train"], step_ms = train_slice_phase(tmp)
-        paths["fp16 train"] = fp16_train_phase(tmp)
-        paths["resume"] = resume_phase(tmp)
-        paths["NCCL world 1"] = nccl_phase(tmp, step_ms)
-        paths["gloo 2 ranks (rank 0)"] = gloo_phase(tmp)
-        paths["evaluation"] = eval_slice_phase(tmp)
-        paths["HPE train"], tree = hpe_train_phase(tmp)
-        paths["HPE test"] = hpe_test_phase(tmp, tree)
-        ratio_driver_phase(tmp, tree)
-        crops, test_crops, paths["preprocessing"] = preprocess_phase(tmp)
-        paths["pix2pixhd export"] = export_phase(tmp, crops)
-        paths["CSV train"] = csv_train_phase(tmp)
-        paths["PATN2 scoring"] = patn2_phase(test_crops)
-        paths["PoseResNet-50 train"] = pose_resnet_phase()
-        paths["zoo nets train"] = zoo_nets_phase()
-        paths["hand3d train"] = hand3d_train_phase(tmp)
-        paths["hand3d DB and evaluation"] = hand3d_eval_phase(tmp, crops)
-        paths["hand3d demos"] = hand3d_demo_phase(tmp, crops)
-        paths["MSRA/V2V train"] = msra_v2v_phase(tmp)
+        paths["train"], step_ms = timed(train_slice_phase, tmp)
+        paths["fp16 train"] = timed(fp16_train_phase, tmp)
+        paths["resume"] = timed(resume_phase, tmp)
+        paths["NCCL world 1"] = timed(nccl_phase, tmp, step_ms)
+        paths["gloo 2 ranks (rank 0)"] = timed(gloo_phase, tmp)
+        paths["longrun (leg 2 and SSIM)"] = timed(longrun_phase, tmp)
+        paths["evaluation"] = timed(eval_slice_phase, tmp)
+        paths["HPE train"], tree = timed(hpe_train_phase, tmp)
+        paths["HPE test"] = timed(hpe_test_phase, tmp, tree)
+        timed(ratio_driver_phase, tmp, tree)
+        crops, test_crops, paths["preprocessing"] = timed(preprocess_phase, tmp)
+        paths["pix2pixhd export"] = timed(export_phase, tmp, crops)
+        paths["CSV train"] = timed(csv_train_phase, tmp)
+        paths["PATN2 scoring"] = timed(patn2_phase, test_crops)
+        paths["PoseResNet-50 train"] = timed(pose_resnet_phase)
+        paths["zoo nets train"] = timed(zoo_nets_phase)
+        paths["hand3d train"] = timed(hand3d_train_phase, tmp)
+        paths["hand3d DB and evaluation"] = timed(hand3d_eval_phase, tmp, crops)
+        paths["hand3d demos"] = timed(hand3d_demo_phase, tmp, crops)
+        paths["MSRA/V2V train"] = timed(msra_v2v_phase, tmp)
     # K1 runs on every path that renders heatmaps, K2 and K2b on the train
     # paths, K3 on the baselines' evaluation path and the pix2pixhd export
     for rec, name in ((k1, "gaussian_heatmaps"), (k2, "bn_sums"),
@@ -3669,6 +3821,9 @@ def main() -> int:
     print("launches by path: " + "; ".join(
         f"{p} {dict((k, v) for k, v in l.items() if v)}"
         for p, l in paths.items()))
+
+    print("phase seconds (host clock): " + json.dumps(
+        {k: round(v, 3) for k, v in PHASE_SECONDS.items()}))
 
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err",
              "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -1,4 +1,5 @@
-"""mmhand_tpu network variables -> mmhand_torch state_dicts.
+"""mmhand_tpu network variables -> mmhand_torch state_dicts, and
+mmhand_tpu train states -> the port's checkpoints (the end of this file).
 
 The exact inverses of ``convert_generator`` and ``convert_discriminator`` in
 tools/convert_mmhand_torch.py, of ``convert_resnet_generator`` and
@@ -32,6 +33,7 @@ from HWIO kernels to the torch indices of ``models.vgg``.
 
 from __future__ import annotations
 
+import functools
 from collections.abc import Mapping
 
 import numpy as np
@@ -446,3 +448,151 @@ def voxel_discriminator_state_dict_from_jax(variables: dict
 
     return _from_module_tree(variables, _skeleton(VoxelDiscriminator),
                              strip="models.")
+
+
+# ------------------------------------------------------------ train states
+#
+# An mmhand_tpu train state, as ``jax.device_get`` (or an orbax restore into
+# mmhand_tpu's own template) gives it, -> the dict the port's
+# ``CheckpointManager`` writes: the system's ``state_dict()``, its per-rank
+# parts stacked over the ranks under ``"rank"``, and ``"world"``.  The
+# optax states are ``chain(scale_by_adam, scale(-1))``: (ScaleByAdamState
+# (count, mu, nu), EmptyState()).  mu and nu have the params' tree, and
+# every step of the maps above is a permutation, a flip or a transpose of
+# a leaf's elements, so the moments go through the params' own map.
+# torch's Adam and optax's keep the same moments and take the same bias
+# corrections and eps (added to sqrt(v_hat)), so the next step is the same
+# up to rounding.  No random stream carries over (torch cannot draw JAX's
+# numbers): the file says ``"rng": "fresh"``, and the port's systems seed
+# their streams from the run's seed when they load it.
+
+
+def _on_meta(make):
+    """``make()`` on the meta device: module names and types, no weights."""
+    with torch.device("meta"):
+        return make()
+
+
+def _adam_from_jax(opt_state, convert, net: nn.Module,
+                   fresh: torch.optim.Optimizer) -> dict:
+    """optax ``(ScaleByAdamState, EmptyState)`` -> the state_dict of a torch
+    Adam over ``net.parameters()``, whose ``param_groups`` (lr, betas, eps)
+    are those of ``fresh``, an Adam the port builds for ``net``.
+    ``convert(tree)`` maps a params-shaped tree to ``net``'s state_dict."""
+    adam = opt_state[0]
+    mu, nu = convert(adam.mu), convert(adam.nu)
+    step = float(np.asarray(adam.count))
+    return {"state": {i: {"step": torch.tensor(step, dtype=torch.float32),
+                          "exp_avg": mu[name], "exp_avg_sq": nu[name]}
+                      for i, (name, _) in enumerate(net.named_parameters())},
+            "param_groups": fresh.state_dict()["param_groups"]}
+
+
+def train_state_from_jax(tree, cfg, world: int = 1) -> dict:
+    """An mmhand_tpu ``MMHandTrainState`` -> what ``CheckpointManager``
+    writes for the port's ``MMHandSystem`` of ``cfg``: G, D_PB and D_PP with
+    their running statistics, their three Adams, the step, the loss scales
+    (None where the run had none) and, per rank, the two pools in the
+    compute dtype.  A state saved from a mesh holds a pool per replica (a
+    leading axis of ``world``), which become the port's rank rows; a
+    single-device state's pools are the one row of ``world`` 1."""
+    from mmhand_torch.train.state import (
+        compute_dtype,
+        make_adam,
+        make_discriminator,
+        make_generator,
+    )
+
+    m = cfg.model
+    gen = functools.partial(generator_state_dict_from_jax,
+                            use_dropout=m.use_dropout_g,
+                            pad_mode=m.padding_type)
+    disc = functools.partial(discriminator_state_dict_from_jax,
+                             use_dropout=m.use_dropout_d,
+                             pad_mode=m.padding_type)
+    out = {}
+    for name, opt, state, to_sd, make in (
+            ("generator", "opt_g", tree.g, gen, lambda: make_generator(cfg)),
+            ("d_pb", "opt_d_pb", tree.d_pb, disc,
+             lambda: make_discriminator(cfg, m.d_pb_input_nc)),
+            ("d_pp", "opt_d_pp", tree.d_pp, disc,
+             lambda: make_discriminator(cfg, m.d_pp_input_nc))):
+        stats = state.batch_stats
+        out[name] = to_sd({"params": state.params, "batch_stats": stats})
+        net = _on_meta(make)
+        # the moments' maps read the statistics for their structure only:
+        # _adam_from_jax keeps the parameters' keys
+        out[opt] = _adam_from_jax(
+            getattr(tree, opt),
+            lambda t: to_sd({"params": t, "batch_stats": stats}),
+            net, make_adam(net, cfg))
+    out["step"] = int(np.asarray(tree.step))
+    out["scales"] = None if tree.scales is None else {
+        k: {"scale": torch.tensor(float(np.asarray(s.scale)),
+                                  dtype=torch.float32),
+            "growth_count": torch.tensor(int(np.asarray(s.growth_count)),
+                                         dtype=torch.int32)}
+        for k, s in tree.scales.items()}
+    dtype = compute_dtype(cfg.precision.compute_dtype) or torch.float32
+    out["rank"] = {}
+    for name in ("pool_pb", "pool_pp"):
+        pool = getattr(tree, name)
+        images = np.array(pool.images, np.float32)  # exact from bf16 / f16
+        num = np.asarray(pool.num).astype(np.int64)
+        if images.ndim == 4:  # a single-device state: no replica axis
+            images, num = images[None], num[None]
+        if images.shape[0] != world or num.shape != (world,):
+            raise ValueError(
+                f"{name}: the state holds {images.shape[0]} replicas' pools, "
+                f"the export asks for world {world}")
+        out["rank"][name] = torch.from_numpy(images).to(dtype)
+        out["rank"][f"{name}_num"] = torch.from_numpy(num)
+    out["world"] = world
+    out["rng"] = "fresh"
+    return out
+
+
+def hpe_train_state_from_jax(tree, variant: str, world: int = 1,
+                             cfg=None) -> dict:
+    """An mmhand_tpu ``HPETrainState`` -> what ``CheckpointManager`` writes
+    for the port's ``hpe.HPESystem`` of ``variant``: Hpm2d and Hpm3d (None
+    where the variant has no such net), their Adams with the ``param_groups``
+    of ``cfg`` (``Config()`` when None), and the step.  Nothing differs
+    between ranks (``"rank"`` is empty); ``world`` is the run's rank
+    count."""
+    from mmhand_torch.config import Config
+    from mmhand_torch.models.cpm import Hpm2d, Hpm3d
+    from mmhand_torch.train.state import make_adam
+
+    cfg = Config() if cfg is None else cfg
+    nets = hpe_state_from_jax(tree)
+    out = {"variant": variant, "step": nets["step"], "rank": {},
+           "world": world, "rng": "fresh"}
+    for name, opt, opt_state, make in (
+            ("hpm2d", "opt2d", tree.opt2d, Hpm2d),
+            ("hpm3d", "opt3d", tree.opt3d, Hpm3d)):
+        out[name] = nets[name]
+        if opt_state is None:
+            out[opt] = None
+            continue
+        net = _on_meta(make)  # the names do not depend on Hpm3d's size
+        out[opt] = _adam_from_jax(
+            opt_state, lambda t: cpm_state_dict_from_jax({"params": t}),
+            net, make_adam(net, cfg))
+    return out
+
+
+def hand3d_train_state_from_jax(tree, net: str,
+                                variant: str = "proposed") -> dict:
+    """An mmhand_tpu ``SubnetTrainState`` -> what ``CheckpointManager``
+    writes for the port's ``hand3d.Hand3DSystem`` of ``net`` (and, for
+    lifting, ``variant``): the subnet, its Adam and the step, for one
+    rank."""
+    from mmhand_torch.hand3d.system import make_adam, make_net
+
+    module, para = _on_meta(lambda: make_net(net, variant))
+    return {"net": net, "variant": variant, "step": int(np.asarray(tree.step)),
+            "module": hand3d_state_dict_from_jax(tree.params),
+            "opt": _adam_from_jax(tree.opt, hand3d_state_dict_from_jax,
+                                  module, make_adam(module, para)),
+            "rank": {}, "world": 1, "rng": "fresh"}

@@ -45,12 +45,13 @@
 // changes who adds, never the order of the additions: the sums are the
 // same bits on every run, and no float atomics touch them.
 //
-// The tickets are a static device array, zero when the module loads; each
-// last block resets its ticket, so the next launch and every replay of a
-// CUDA graph start from zero, with no memset launch.  Two K2 launches that
-// overlapped on one device would share the tickets: the port runs one
-// stream per process (data parallelism too: a process per rank), and the
-// launches of one stream never overlap.
+// The tickets are an array the caller passes in, one per stream
+// (ops/bn_stats.py `_tickets`), zero before the stream's first launch;
+// each last block resets its ticket, so the next launch on the stream and
+// every replay of a CUDA graph start from zero, with no memset launch.
+// The launches of one stream never overlap, and launches on two streams
+// take two arrays, so two K2 launches that run at once never share a
+// ticket.
 //
 // K2b is the backward of the same custom_vjp (mmhand_tpu/ops/bn_stats.py:73-77
 // `_sums_2d_bwd`): dx = g1[c] + 2 g2[c] x[m, c] in f32, stored in x's type,
@@ -81,8 +82,6 @@ constexpr int kMaxChunks = 256;    // K2: chunks a tile's last block sums
 constexpr int kMaxTickets = 8192;  // K2: tiles + 1 at most
 
 enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
-
-__device__ unsigned int g_tickets[kMaxTickets];
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T v);
@@ -227,11 +226,12 @@ __device__ void fold(const T* x, const SumsPlan& p, const float* slots,
 // K2: block (chunk, tile) of the plan above, one block of kSumThreads per
 // SM.  A partial is 2 x tw floats (tw = lanes * vec slots: the sums, then
 // the sums of squares).  Scratch: [chunks][tiles] block partials, then
-// [tiles] slot sums.
+// [tiles] slot sums.  tickets: kMaxTickets, zero, this stream's own.
 template <typename T>
 __global__ void __launch_bounds__(kSumThreads, 1)
 bn_sums_kernel(const T* __restrict__ x, const SumsPlan p,
-               float* __restrict__ scratch, float* __restrict__ out) {
+               float* __restrict__ scratch, float* __restrict__ out,
+               unsigned int* __restrict__ tickets) {
   constexpr int kVec = kVecBytes / sizeof(T);
   __shared__ __align__(16) float red[kSumWarps * 2 * kSumLanes * kVec];
   const int lanes = static_cast<int>(p.lanes);
@@ -306,7 +306,7 @@ bn_sums_kernel(const T* __restrict__ x, const SumsPlan p,
 
   // the tile's last block: lane i of warp q sums float4 column q of chunks
   // i, i + 32, ... in order, then the lanes by the tree, into `red`
-  if (!last_to_arrive(&g_tickets[tile], p.chunks)) return;
+  if (!last_to_arrive(&tickets[tile], p.chunks)) return;
   for (int q = warp; q < quads; q += kSumWarps) {
     float4 part[kMaxChunks / 32];
 #pragma unroll
@@ -347,7 +347,7 @@ bn_sums_kernel(const T* __restrict__ x, const SumsPlan p,
   for (int i = threadIdx.x; i < 2 * tw; i += kSumThreads) {
     slots[tile * 2 * tw + i] = red[i];
   }
-  if (!last_to_arrive(&g_tickets[p.tiles], p.tiles)) return;
+  if (!last_to_arrive(&tickets[p.tiles], p.tiles)) return;
   fold(x, p, slots, true, tw, edges, out);
 }
 
@@ -435,11 +435,11 @@ bn_sums_backward_kernel(const T* __restrict__ x, const float* __restrict__ g1,
 
 template <typename T>
 int launch_sums(const void* x, const SumsPlan& p, float* scratch, float* out,
-                cudaStream_t stream) {
+                unsigned int* tickets, cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned int>(p.chunks),
                   static_cast<unsigned int>(p.tiles));
   bn_sums_kernel<T><<<grid, kSumThreads, 0, stream>>>(
-      static_cast<const T*>(x), p, scratch, out);
+      static_cast<const T*>(x), p, scratch, out, tickets);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -483,24 +483,27 @@ bool plan_fits(const SumsPlan& p, const void* x, int elem_bytes) {
 
 // x: (n, c) row-major on the device, of dtype 0 f32, 1 bf16, 2 f16; plan:
 // a host array of the int64 fields of ops/bn_stats.py `SumsPlan`; scratch:
-// its `scratch_floats` f32; out: (2, c) f32, (sum, sum_sq).  Launches on
-// `stream` and returns cudaGetLastError() (0 on success); it does not
+// its `scratch_floats` f32; out: (2, c) f32, (sum, sum_sq); tickets:
+// kMaxTickets int32, zero, used by no launch on another stream.  Launches
+// on `stream` and returns cudaGetLastError() (0 on success); it does not
 // synchronise.
 extern "C" int mmhand_bn_sums(const void* x, int dtype, const int64_t* plan,
-                              float* scratch, float* out, void* stream) {
+                              float* scratch, float* out, void* tickets,
+                              void* stream) {
   SumsPlan p;
   static_assert(kPlanFields == 10, "SumsPlan has 10 fields");
   std::memcpy(&p, plan, sizeof(p));
   const int elem_bytes = dtype == kF32 ? 4 : 2;
   if ((dtype != kF32 && dtype != kBF16 && dtype != kF16) ||
-      !plan_fits(p, x, elem_bytes)) {
+      !plan_fits(p, x, elem_bytes) || tickets == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned int* t = static_cast<unsigned int*>(tickets);
   switch (dtype) {
-    case kF32: return launch_sums<float>(x, p, scratch, out, s);
-    case kBF16: return launch_sums<__nv_bfloat16>(x, p, scratch, out, s);
-    default: return launch_sums<__half>(x, p, scratch, out, s);
+    case kF32: return launch_sums<float>(x, p, scratch, out, t, s);
+    case kBF16: return launch_sums<__nv_bfloat16>(x, p, scratch, out, t, s);
+    default: return launch_sums<__half>(x, p, scratch, out, t, s);
   }
 }
 

@@ -55,6 +55,26 @@ TRAIN_PARA_LIFTING = {
 NETS = ("handsegnet", "posenet", "lifting")
 
 
+def make_net(net: str, variant: str = "proposed", crop_size: int = 256
+             ) -> tuple[torch.nn.Module, dict]:
+    """The subnet ``net`` as constructed, on the default device, and its
+    train_para."""
+    if net == "handsegnet":
+        return HandSegNet(), TRAIN_PARA_HANDSEGNET
+    if net == "posenet":
+        return PoseNet2D(), TRAIN_PARA_POSENET
+    if net == "lifting":
+        return (PosePriorNetwork(variant=variant, crop_size=crop_size),
+                TRAIN_PARA_LIFTING)
+    raise ValueError(f"unknown hand3d net [{net}]")
+
+
+def make_adam(module: torch.nn.Module, para: dict) -> torch.optim.Adam:
+    """``optax.scale_by_adam``'s defaults at the first staged rate."""
+    return torch.optim.Adam(module.parameters(), lr=para["lr"][0],
+                            betas=(0.9, 0.999), eps=1e-8)
+
+
 def staged_lr(values, steps, global_step: int) -> float:
     """The piecewise-constant learning rate (reference utils/general.py
     LearningRateScheduler): values[i + 1] from global_step steps[i] on."""
@@ -77,15 +97,7 @@ class Hand3DSystem:
     def __init__(self, net: str = "posenet", variant: str = "proposed",
                  crop_size: int = 256, device="cuda", seed: int = 0,
                  distributed: bool = False):
-        if net == "handsegnet":
-            module, para = HandSegNet(), TRAIN_PARA_HANDSEGNET
-        elif net == "posenet":
-            module, para = PoseNet2D(), TRAIN_PARA_POSENET
-        elif net == "lifting":
-            module = PosePriorNetwork(variant=variant, crop_size=crop_size)
-            para = TRAIN_PARA_LIFTING
-        else:
-            raise ValueError(f"unknown hand3d net [{net}]")
+        module, para = make_net(net, variant, crop_size)
         self.net, self.variant, self.train_para = net, variant, para
         self.device = torch.device(device)
         self.distributed = distributed
@@ -93,8 +105,8 @@ class Hand3DSystem:
                                  if distributed else (0, 1))
         init_hand3d(module, torch.Generator().manual_seed(seed))
         self.module = module.to(self.device)
-        self.opt = torch.optim.Adam(self.module.parameters(), lr=para["lr"][0],
-                                    betas=(0.9, 0.999), eps=1e-8)
+        self.opt = make_adam(self.module, para)
+        self.seed = seed
         self.dropout_gen = torch.Generator(self.device).manual_seed(
             rank_seed(seed, self.rank))
         self.step = 0
@@ -114,7 +126,10 @@ class Hand3DSystem:
         self.module.load_state_dict(d["module"])
         load_adam_state_dict(self.opt, d["opt"])
         self.step = int(d["step"])
-        self.dropout_gen.set_state(d["rank"]["dropout_rng"].cpu())
+        if d.get("rng") == "fresh":  # a JAX export holds no stream
+            self.dropout_gen.manual_seed(rank_seed(self.seed, self.rank))
+        else:
+            self.dropout_gen.set_state(d["rank"]["dropout_rng"].cpu())
 
     # ------------------------------------------------------------ losses
     def loss_fn(self, batch: dict) -> torch.Tensor:

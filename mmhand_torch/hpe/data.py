@@ -9,7 +9,7 @@ random noise with instance weight 0 (the ablation, RHD_dataset.py:145-148).
 Heatmaps use sigma 5 here (:157), against sigma 6 in the GAN data path; z
 targets are depth / 0.7 (:158).
 
-Deliberate divergence from mmhand_tpu: the augmentation map.  mmhand_tpu
+Deliberate divergence against mmhand_tpu: the augmentation map.  mmhand_tpu
 (and the reference) mark a seeded random (1-ratio) share of the
 string-sorted paths, while ``aug`` writes the targets of the GAN dataset's
 own split with is_train False (``split_src_tgt``: the first (1-ratio) share

@@ -232,7 +232,8 @@ def _kernels():
     lib = load_library()
     forward = lib.mmhand_bn_sums
     forward.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                        ctypes.c_void_p]
     forward.restype = ctypes.c_int
     backward = lib.mmhand_bn_sums_backward
     backward.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
@@ -252,6 +253,49 @@ def _plan_args(plan: SumsPlan) -> ctypes.Array:
     return (ctypes.c_int64 * len(plan))(*plan)
 
 
+# K2's tickets: one zeroed int32 array of MAX_TICKETS per (device, stream),
+# which only that stream's launches touch and each launch leaves zero, so
+# two launches that run at once on two streams never share a ticket.  A
+# spare per device, made outside any CUDA graph capture, goes to the next
+# stream that needs one: a stream first seen while a graph is captured
+# (torch.cuda.graph's own capture stream) then needs no allocation and no
+# memset inside the capture.  The limit: a CUDA graph keeps the tickets of
+# the stream it was captured on.  torch.cuda.graph captures every graph on
+# one shared stream, so such graphs share one array: their replays must not
+# overlap one another, nor overlap eager K2 launches on a stream that has
+# that stream's handle (torch's stream pool may hand it out again).
+_TICKETS: dict[tuple[int, int], torch.Tensor] = {}
+_SPARE_TICKETS: dict[int, torch.Tensor] = {}
+
+
+def _zeroed_tickets(device: torch.device) -> torch.Tensor:
+    tickets = torch.zeros(MAX_TICKETS, dtype=torch.int32, device=device)
+    # zero before a launch on another stream reads it; once per stream
+    torch.cuda.current_stream(device).synchronize()
+    return tickets
+
+
+def _tickets(device: torch.device, stream: int) -> torch.Tensor:
+    """The tickets of ``stream`` (a raw handle) on ``device``; call it under
+    ``torch.cuda.device(device)``."""
+    tickets = _TICKETS.get((device.index, stream))
+    if tickets is not None:
+        return tickets
+    capturing = torch.cuda.is_current_stream_capturing()
+    tickets = _SPARE_TICKETS.pop(device.index, None)
+    if tickets is None:
+        if capturing:
+            raise RuntimeError(
+                "bn_sums: a CUDA graph captures K2's first launch on a new "
+                "stream, and the spare tickets are taken; call bn_sums once "
+                "on that stream before the capture")
+        tickets = _zeroed_tickets(device)
+    _TICKETS[device.index, stream] = tickets
+    if not capturing:
+        _SPARE_TICKETS[device.index] = _zeroed_tickets(device)
+    return tickets
+
+
 def _bn_sums_cuda(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     n, c = rows_view(x)
     ptr, size = x.data_ptr(), x.element_size()
@@ -266,7 +310,8 @@ def _bn_sums_cuda(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
                               device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = forward(ptr, _DTYPE_CODES[x.dtype], _plan_args(plan),
-                      scratch.data_ptr(), out.data_ptr(), stream)
+                      scratch.data_ptr(), out.data_ptr(),
+                      _tickets(x.device, stream).data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"bn_sums kernel launch failed: cudaError {err}")
     bn_sums.launches += 1

@@ -1,12 +1,14 @@
-"""Multi-process dry run of the data-parallel GAN step on the CPU
-(counterpart of the GAN part of ``dryrun_multichip`` in __graft_entry__.py).
+"""Multi-process dry run of the data-parallel train steps on the CPU
+(counterpart of ``dryrun_multichip`` in __graft_entry__.py).
 
 ``launch(argv, world)`` runs ``python argv...`` as ranks 0..world-1 with
 the environment torchrun would give them (RANK, WORLD_SIZE, LOCAL_RANK,
 MASTER_ADDR=localhost, MASTER_PORT a free port), so that each joins the
 group through ``init_distributed``.  ``dryrun_multichip(n)`` launches this
-module in ``n`` gloo processes: one toy DP train step (32 px, ngf/ndf 8, 2
-blocks, pool 4, batch 2 per rank), whose metrics must be finite.
+module in ``n`` gloo processes, which run three DP train steps, 2 items per
+rank: the GAN (32 px, ngf/ndf 8, 2 blocks, pool 4), the HPE trainer
+(``hpm``, both CPM nets at full width, 32 px) and the hand3d lifting net
+(``proposed``, crop 32).  Every metric must be finite.
 
     python -c "from mmhand_torch.parallel.dryrun import dryrun_multichip; \\
         print(dryrun_multichip(2))"
@@ -92,9 +94,42 @@ def toy_batch(global_batch: int, seed: int = 0) -> dict:
                          ("P1", 21), ("P2", 21)]}
 
 
-def dryrun_multichip(n: int, timeout: float = 120) -> dict:
-    """One toy DP train step in ``n`` gloo processes on the CPU; returns rank
-    0's metrics, averaged over the ranks."""
+def hpe_batch(global_batch: int, seed: int = 2) -> dict:
+    """A global batch of the HPE step's inputs: uniform image, heatmaps and
+    z, weight 1 (__graft_entry__.py:88-106)."""
+    rng = np.random.RandomState(seed)
+    f32 = lambda *shape: rng.uniform(0, 1, shape).astype(np.float32)  # noqa: E731
+    return {"image": 2 * f32(global_batch, 32, 32, 3) - 1,
+            "heatmaps": f32(global_batch, 32, 32, 21),
+            "z": f32(global_batch, 21),
+            "weight": np.ones(global_batch, np.int32)}
+
+
+def hand3d_batch(global_batch: int, seed: int = 3) -> dict:
+    """A global batch of the lifting step's inputs: uniform scoremaps, the
+    left hand, normal canonical keypoints and identity rotations
+    (__graft_entry__.py:108-131)."""
+    rng = np.random.RandomState(seed)
+    n = global_batch
+    return {"scoremap": rng.uniform(0, 1, (n, 32, 32, 21)).astype(np.float32),
+            "hand_side": np.tile(np.float32([[1, 0]]), (n, 1)),
+            "keypoint_xyz21_can": rng.normal(size=(n, 21, 3)).astype(
+                np.float32),
+            "rot_mat": np.tile(np.eye(3, dtype=np.float32)[None], (n, 1, 1))}
+
+
+def rank_slice(batch: dict, rank: int) -> dict:
+    """Rank ``rank``'s 2 items of a global numpy batch, as tensors."""
+    import torch
+
+    return {k: torch.from_numpy(v[2 * rank:2 * rank + 2])
+            for k, v in batch.items()}
+
+
+def dryrun_multichip(n: int, timeout: float = 180) -> dict:
+    """The three toy DP train steps in ``n`` gloo processes on the CPU;
+    returns rank 0's metrics, averaged over the ranks, under "gan", "hpe"
+    and "hand3d"."""
     with tempfile.TemporaryDirectory(prefix="mmhand_dryrun_") as tmp:
         out = Path(tmp) / "metrics.json"
         root = str(Path(__file__).resolve().parents[2])
@@ -105,13 +140,23 @@ def dryrun_multichip(n: int, timeout: float = 120) -> dict:
         return json.loads(out.read_text())
 
 
-def _worker(out: str) -> None:
+def _finite(rank: int, leg: str, metrics: dict) -> dict:
     import math
+
+    metrics = {k: float(v) for k, v in metrics.items()}
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise RuntimeError(f"rank {rank}, {leg}: metrics {metrics}")
+    return metrics
+
+
+def _worker(out: str) -> None:
     import warnings
 
-    import torch
     import torch.distributed as dist
 
+    from mmhand_torch.config import Config, ModelConfig
+    from mmhand_torch.hand3d import Hand3DSystem, make_hand3d_train_step
+    from mmhand_torch.hpe import HPESystem, make_hpe_train_step
     from mmhand_torch.parallel.mesh import init_distributed
     from mmhand_torch.train.state import build_system
     from mmhand_torch.train.step import make_train_step
@@ -122,12 +167,19 @@ def _worker(out: str) -> None:
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")  # the random-VGG warning
             system = build_system(toy_config(), device, distributed=True)
-        batch = {k: torch.from_numpy(v[2 * rank:2 * rank + 2])
-                 for k, v in toy_batch(2 * world).items()}
-        metrics = {k: float(v) for k, v in
-                   make_train_step(system)(batch, 2e-4).items()}
-        if not all(math.isfinite(v) for v in metrics.values()):
-            raise RuntimeError(f"rank {rank}: metrics {metrics}")
+        metrics = {"gan": _finite(rank, "gan", make_train_step(system)(
+            rank_slice(toy_batch(2 * world), rank), 2e-4))}
+        del system
+        hpe = HPESystem(Config(model=ModelConfig(fine_size=32)), "hpm",
+                        device, distributed=True)
+        metrics["hpe"] = _finite(rank, "hpe", make_hpe_train_step(hpe)(
+            rank_slice(hpe_batch(2 * world), rank), 2e-4))
+        del hpe
+        lift = Hand3DSystem("lifting", "proposed", crop_size=32,
+                            device=device, seed=3, distributed=True)
+        metrics["hand3d"] = _finite(rank, "hand3d", {
+            "loss": make_hand3d_train_step(lift)(
+                rank_slice(hand3d_batch(2 * world), rank))})
         if rank == 0:
             Path(out).write_text(json.dumps(metrics))
     finally:

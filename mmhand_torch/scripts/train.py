@@ -30,6 +30,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
+import json
 import os
 
 import torch.distributed as dist
@@ -54,6 +56,9 @@ def main(argv=None) -> TrainResult:
                              "(tools/convert_torch_weights.py)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to train on")
+    parser.add_argument("--n_blocks", type=int, default=None,
+                        help="the generator's PATBlocks (9 by default; "
+                             "mmhand_tpu's command line has no such flag)")
     parser.add_argument("--profile", action="store_true",
                         help="torch.profiler trace of the first steps under "
                              "checkpoints/<name>/trace")
@@ -63,6 +68,9 @@ def main(argv=None) -> TrainResult:
     args = parser.parse_args(argv)
 
     cfg = from_cli_args(args, Config())
+    if args.n_blocks is not None:
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, g_n_blocks=args.n_blocks))
     device, master = args.device, True
     if args.multihost:
         device = init_distributed(args.device)
@@ -85,7 +93,22 @@ def main(argv=None) -> TrainResult:
                 f"; {result.images_per_sec:.2f} images/s after the first step")
         print(f"done: {result.steps} steps{rate}, last metrics: "
               f"{ {k: round(v, 4) for k, v in result.last_metrics.items()} }")
+        print(f"{LAUNCHES_LINE}{json.dumps(kernel_launches())}")
     return result
+
+
+LAUNCHES_LINE = "kernel launches: "
+
+
+def kernel_launches() -> dict:
+    """The launches of the train step's kernels in this process: K1
+    (heatmaps) and K2 and K2b (BatchNorm sums); 0 on the CPU, where the
+    plain versions run."""
+    from mmhand_torch.ops.bn_stats import bn_sums, bn_sums_backward
+    from mmhand_torch.ops.heatmap import gaussian_heatmaps
+
+    return {f.__name__: f.launches
+            for f in (gaussian_heatmaps, bn_sums, bn_sums_backward)}
 
 
 if __name__ == "__main__":

@@ -141,8 +141,10 @@ def main(argv=None) -> Hand3DTrainResult:
 
     ckpt = CheckpointManager(args.checkpoints_dir, f"{args.name}_{args.net}")
     if args.continue_train and ckpt.has("latest"):
-        ckpt.restore(system, "latest")
-        print(f"resumed at step {system.step}")
+        fresh = ckpt.restore(system, "latest")
+        print(f"resumed at step {system.step}" + (
+            f" from a state mmhand_tpu trained: the dropout stream "
+            f"starts fresh from --seed {args.seed}" if fresh else ""))
 
     step = make_hand3d_train_step(system)
     rng = np.random.RandomState(args.seed)

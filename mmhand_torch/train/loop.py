@@ -110,7 +110,10 @@ def train(cfg: Config, *, device="cuda", max_steps: Optional[int] = None,
     sched_path = os.path.join(run.checkpoints_dir, run.name, "lr_sched.json")
     resume = run.continue_train and ckpt.has(run.which_epoch)
     if resume:
-        ckpt.restore(system, run.which_epoch)
+        if ckpt.restore(system, run.which_epoch) and master:
+            print(f"resumed at step {system.step} from a state mmhand_tpu "
+                  f"trained: the pool and dropout streams start fresh from "
+                  f"--seed {system.seed}")
         if os.path.exists(sched_path):  # plateau state sidecar
             with open(sched_path) as fh:
                 sched.load_state_dict(json.load(fh))

@@ -50,20 +50,40 @@ def rank_seed(seed: int, rank: int) -> int:
     return seed + 1_000_003 * rank
 
 
+def make_generator(cfg: Config, cross_rank: bool = False) -> Generator:
+    """The configured Generator as constructed, on the default device;
+    ``cross_rank`` syncs its BatchNorm statistics over the ranks."""
+    m = cfg.model
+    return Generator(input_nc=m.g_input_nc, output_nc=m.output_nc, ngf=m.ngf,
+                     n_blocks=m.g_n_blocks, n_downsampling=m.g_n_downsampling,
+                     norm=NormConfig(kind=m.norm, cross_rank=cross_rank),
+                     use_dropout=m.use_dropout_g,
+                     pad_mode=m.padding_type,
+                     compute_dtype=compute_dtype(cfg.precision.compute_dtype))
+
+
+def make_discriminator(cfg: Config, input_nc: int,
+                       cross_rank: bool = False) -> Discriminator:
+    """A configured Discriminator on ``input_nc`` channels as constructed,
+    on the default device."""
+    m = cfg.model
+    return Discriminator(input_nc, ndf=m.ndf, n_blocks=m.n_layers_d,
+                         n_downsampling=m.d_n_downsampling,
+                         norm=NormConfig(kind=m.norm, cross_rank=cross_rank),
+                         use_dropout=m.use_dropout_d,
+                         pad_mode=m.padding_type,
+                         compute_dtype=compute_dtype(
+                             cfg.precision.compute_dtype))
+
+
 def build_generator(cfg: Config, device="cuda", seed: Optional[int] = None,
                     cross_rank: bool = False) -> Generator:
     """The configured Generator, its weights drawn on the CPU from ``seed``
     (``cfg.data.seed`` when None), moved to ``device`` as channels_last;
     ``cross_rank`` syncs its BatchNorm statistics over the ranks."""
-    m = cfg.model
-    g = Generator(input_nc=m.g_input_nc, output_nc=m.output_nc, ngf=m.ngf,
-                  n_blocks=m.g_n_blocks, n_downsampling=m.g_n_downsampling,
-                  norm=NormConfig(kind=m.norm, cross_rank=cross_rank),
-                  use_dropout=m.use_dropout_g,
-                  pad_mode=m.padding_type,
-                  compute_dtype=compute_dtype(cfg.precision.compute_dtype))
     rng = torch.Generator().manual_seed(cfg.data.seed if seed is None else seed)
-    return _place(init_weights(g, m.init_type, rng), device)
+    return _place(init_weights(make_generator(cfg, cross_rank),
+                               cfg.model.init_type, rng), device)
 
 
 def build_discriminator(cfg: Config, input_nc: int, device="cuda",
@@ -71,14 +91,8 @@ def build_discriminator(cfg: Config, input_nc: int, device="cuda",
                         ) -> Discriminator:
     """A configured Discriminator on ``input_nc`` channels, its weights drawn
     on the CPU from ``seed``, moved to ``device`` as channels_last."""
-    m = cfg.model
-    d = Discriminator(input_nc, ndf=m.ndf, n_blocks=m.n_layers_d,
-                      n_downsampling=m.d_n_downsampling,
-                      norm=NormConfig(kind=m.norm, cross_rank=cross_rank),
-                      use_dropout=m.use_dropout_d,
-                      pad_mode=m.padding_type,
-                      compute_dtype=compute_dtype(cfg.precision.compute_dtype))
-    return _place(init_weights(d, m.init_type,
+    return _place(init_weights(make_discriminator(cfg, input_nc, cross_rank),
+                               cfg.model.init_type,
                                torch.Generator().manual_seed(seed)), device)
 
 
@@ -125,6 +139,7 @@ class MMHandSystem:
     rank: int = 0
     world: int = 1
     distributed: bool = False
+    seed: int = 0                # of the nets; rank_seed(seed, rank) streams
 
     @property
     def device(self) -> torch.device:
@@ -150,7 +165,11 @@ class MMHandSystem:
         return d
 
     def load_state_dict(self, d: dict) -> None:
-        """Restore what ``state_dict`` gave, on this system's device."""
+        """Restore what ``state_dict`` gave, on this system's device.  A
+        state mmhand_tpu trained (``"rng": "fresh"``,
+        ``convert.train_state_from_jax``) holds no random streams: the pool
+        and global generators are seeded from ``rank_seed(seed, rank)``,
+        as ``build_system`` seeds them."""
         if (d["scales"] is None) != (self.scales is None):
             raise ValueError("the checkpoint's loss scaling differs from "
                              "PrecisionConfig.loss_scaling")
@@ -174,6 +193,10 @@ class MMHandSystem:
             images = own[name].to(device=self.device,
                                   dtype=getattr(self, name).images.dtype)
             setattr(self, name, PoolState(images, int(own[f"{name}_num"])))
+        if d.get("rng") == "fresh":
+            self.pool_rng.manual_seed(rank_seed(self.seed, self.rank))
+            torch.manual_seed(rank_seed(self.seed, self.rank))
+            return
         self.pool_rng.set_state(own["rng_pool"].cpu())
         torch.set_rng_state(own["rng_cpu"].cpu())
         if self.device.type == "cuda":
@@ -251,4 +274,4 @@ def build_system(cfg: Config, device="cuda", *, vgg_npz: Optional[str] = None,
         pool_rng=torch.Generator(device=device).manual_seed(
             rank_seed(seed, rank)),
         scales=init_scales(device) if cfg.precision.loss_scaling else None,
-        rank=rank, world=world, distributed=distributed)
+        rank=rank, world=world, distributed=distributed, seed=seed)

@@ -86,7 +86,10 @@ class CheckpointManager:
         if system.distributed:  # every rank returns with the file in place
             dist.barrier()
 
-    def restore(self, system, label: str = "latest") -> None:
+    def restore(self, system, label: str = "latest") -> bool:
+        """Load ``state_<label>.pt`` into ``system``; True when the file holds
+        no random streams (a state mmhand_tpu trained, ``"rng":
+        "fresh"``), which the system then seeds from its seed."""
         path = self.path(label)
         if not os.path.exists(path):
             raise FileNotFoundError(
@@ -100,6 +103,7 @@ class CheckpointManager:
         state["rank"] = {k: v[system.rank].clone()
                          for k, v in state["rank"].items()}
         system.load_state_dict(state)
+        return state.get("rng") == "fresh"
 
     def has(self, label: str = "latest") -> bool:
         return os.path.exists(self.path(label))

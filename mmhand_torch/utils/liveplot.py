@@ -180,5 +180,7 @@ class LossPlot:
             f'<body style="margin:0">{svg}</body></html>')
         with open(os.path.join(self.web_dir, "losses.html"), "w") as f:
             f.write(html)
-        with open(self.data_path, "w") as f:
+        # whole or not at all: a run killed mid-write resumes its curve
+        with open(f"{self.data_path}.tmp", "w") as f:
             json.dump({"X": self.xs, "Y": self.ys, "legend": self.legend}, f)
+        os.replace(f"{self.data_path}.tmp", self.data_path)

@@ -30,21 +30,12 @@ from mmhand_torch.scripts import generate_pose_maps as tgen
 from mmhand_torch.scripts import train as ttrain
 from mmhand_tpu.data import csv_dataset as jcsv
 from mmhand_tpu.data import preprocess as jpre
+from test_torch_threads import two_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 SIZE = 32
 LOSS_KEYS = {"pair_L1loss", "pair_GANloss", "D_PB", "D_PP", "origin_L1",
              "perceptual"}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def two_threads():
-    """Two intra-op threads while this file runs: the suite runs several
-    files at once."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(saved)
 
 
 @pytest.fixture(scope="module")

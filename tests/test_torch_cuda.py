@@ -278,6 +278,41 @@ def test_bn_sums_in_cuda_graph_equal_eager(cuda, shape, dtype, offset):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [
+    ((16, 64, 256, 256), torch.bfloat16),  # 528 blocks over 66 tiles
+    ((16, 256, 64, 64), torch.bfloat16),
+    ((32, 1, 128, 128), torch.float32)])   # one tile, 256 chunks
+def test_bn_sums_on_two_streams_at_once(cuda, shape, dtype):
+    """K2 on two streams with no wait between them, 8 launches a stream
+    per round, 10 rounds: every result equals the eager sums of its input
+    bit for bit, and those the plain sums at 1e-5, so no launch took
+    another's tickets.  The inputs share one plan, so the launches would
+    count on the same tickets if the streams shared them."""
+    xs = [_bn_input(shape, dtype, 0, seed, cuda)[0] for seed in (11, 12)]
+    want = [[t.clone() for t in bn_sums(x)] for x in xs]
+    for x, (s1, s2) in zip(xs, want):
+        r1, r2 = bn_sums_ref(x)
+        assert float(((s1 - r1).abs() / x.float().abs().sum((0, 2, 3))).max()) <= 1e-5
+        assert float(((s2 - r2).abs() / r2).max()) <= 1e-5
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    for _ in range(10):
+        outs = [[], []]
+        for _ in range(8):  # issued in turns, so the two queues interleave
+            for i, (s, x) in enumerate(zip(streams, xs)):
+                with torch.cuda.stream(s):
+                    outs[i].append(bn_sums(x))
+        torch.cuda.synchronize()
+        for i in range(2):
+            for s1, s2 in outs[i]:
+                assert torch.equal(s1, want[i][0]) and torch.equal(s2, want[i][1])
+    again = [bn_sums(x) for x in xs]
+    for (s1, s2), w in zip(again, want):
+        assert torch.equal(s1, w[0]) and torch.equal(s2, w[1])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape,dtype,offset", BN_EDGE_CASES)
 def test_bn_backward_equals_plain_at_edge_cases(cuda, shape, dtype, offset):
     """K2b, unchanged beside the new K2, still equals the plain formula bit

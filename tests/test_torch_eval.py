@@ -52,6 +52,7 @@ from mmhand_tpu.models.inception import load_inception_npz
 from mmhand_tpu.ops.ssim import _gaussian_window as jax_window
 from mmhand_tpu.ops.ssim import ssim as jax_ssim
 from mmhand_tpu.train.state import NetState
+from test_torch_threads import two_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 SIZE = 32

@@ -48,20 +48,10 @@ from mmhand_tpu.hand3d import system as jsys
 from mmhand_tpu.models import hand3d as jnet
 from mmhand_tpu.ops import hand3d_image as jimg
 from mmhand_tpu.ops import hand_trafo as jtrafo
+from test_torch_threads import two_threads  # noqa: F401
 
 SIZE, B = 32, 2
 REPO = Path(__file__).resolve().parent.parent
-
-
-@pytest.fixture(scope="module", autouse=True)
-def two_threads():
-    """Two intra-op threads while this file runs: the suite runs several
-    files at once, and torch's OpenMP pool of one thread per core then
-    stalls the full-width nets."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(saved)
 
 
 def _t(a) -> torch.Tensor:

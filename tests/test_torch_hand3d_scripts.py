@@ -50,19 +50,10 @@ from mmhand_torch.scripts import train_hand3d as ttrain
 from mmhand_torch.utils.checkpoint import CheckpointManager
 from mmhand_tpu.hand3d import system as jsys
 from mmhand_tpu.models import hand3d as jnet
+from test_torch_threads import two_threads  # noqa: F401
 
 SIZE = 32
 REPO = Path(__file__).resolve().parent.parent
-
-
-@pytest.fixture(scope="module", autouse=True)
-def two_threads():
-    """Two intra-op threads while this file runs (the suite runs several
-    files at once)."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(saved)
 
 
 @pytest.fixture

@@ -27,16 +27,9 @@ from mmhand_torch.scripts import convert_hand3d_weights as tconv
 from mmhand_torch.scripts import eval_hand3d as teval
 from mmhand_tpu.models import hand3d as jnet
 from tools.convert_hand3d_weights import tf_dict_to_params
+from test_torch_threads import two_threads  # noqa: F401
 
 SIZE = 32
-
-
-@pytest.fixture(scope="module", autouse=True)
-def two_threads():
-    saved = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(saved)
 
 
 @functools.lru_cache(maxsize=None)

@@ -50,6 +50,7 @@ from mmhand_tpu.hpe import system as jsys
 from mmhand_tpu.models import cpm as jcpm
 from mmhand_tpu.ops import heatmap as jheat
 from mmhand_tpu.ops.image import normalize_image as jnormalize
+from test_torch_threads import two_threads  # noqa: F401
 
 SIZE, B, LR = 32, 3, 2e-4
 VARIANTS = ("hpm", "hpm2d", "hpm3d")
@@ -65,17 +66,6 @@ def _config(module, dataset="synthetic", dataroot="", ratio=1.0,
         optim=module.OptimConfig(**optim),
         precision=module.PrecisionConfig(compute_dtype="float32"),
         is_train=is_train)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def two_threads():
-    """Two intra-op threads while this file runs: the suite runs several
-    files at once, and torch's OpenMP pool of one thread per core then
-    stalls the full-width CPM nets' ops for minutes."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(saved)
 
 
 @pytest.fixture(scope="module")

@@ -37,6 +37,7 @@ from mmhand_tpu.models import Generator as JaxGenerator
 from mmhand_tpu.models import NormConfig as JaxNormConfig
 from mmhand_tpu.train import state as jstate
 from mmhand_tpu.train import step as jstep
+from test_torch_threads import two_threads  # noqa: F401
 
 WORLD, B, SIZE, LR = 2, 4, 32, 2e-4
 NETS = ("generator", "d_pb", "d_pp")
@@ -339,10 +340,15 @@ def test_train_cli_multihost_over_gloo(tmp_path):
 
 
 def test_dryrun_multichip_two_ranks():
+    """The GAN, HPE (hpm) and hand3d lifting DP steps of
+    __graft_entry__.py's dry run, in one launch of two gloo ranks."""
     metrics = dryrun_multichip(2)
-    assert set(metrics) == {"pair_L1loss", "pair_GANloss", "origin_L1",
-                            "perceptual", "D_PP", "D_PB"}
-    assert all(np.isfinite(v) for v in metrics.values())
+    assert set(metrics) == {"gan", "hpe", "hand3d"}
+    assert set(metrics["gan"]) == {"pair_L1loss", "pair_GANloss", "origin_L1",
+                                   "perceptual", "D_PP", "D_PB"}
+    assert set(metrics["hpe"]) == {"mse", "lz"}
+    assert set(metrics["hand3d"]) == {"loss"}
+    assert all(np.isfinite(v) for leg in metrics.values() for v in leg.values())
 
 
 def test_missing_gradient_and_environment_raise(monkeypatch):

@@ -31,6 +31,7 @@ from mmhand_tpu import config as jcfg
 from mmhand_tpu.train import precision as jamp
 from mmhand_tpu.train import state as jstate
 from mmhand_tpu.train import step as jstep
+from test_torch_threads import two_threads  # noqa: F401
 
 B, SIZE, LR = 2, 32, 2e-4
 NETS = ("generator", "d_pb", "d_pp")

@@ -16,7 +16,6 @@ import pickle
 
 import numpy as np
 import pytest
-import torch
 
 from mmhand_torch.data import preprocess as tpre
 from mmhand_torch.data.raw_sources import write_raw_rhd, write_raw_stb
@@ -25,20 +24,11 @@ from mmhand_torch.scripts import create_rhd_db as rhd_cli
 from mmhand_torch.scripts import create_stb_db as stb_cli
 from mmhand_tpu.data import preprocess as jpre
 from mmhand_tpu.ops import image as jimage
+from test_torch_threads import two_threads  # noqa: F401
 
 SIZE = 32
 N_RHD = 16  # frames: 32 hands, 8 rejected, 4 filtered -> 20 crops
 N_STB = 3   # frames per camera view and sequence
-
-
-@pytest.fixture(autouse=True, scope="module")
-def two_threads():
-    """Two intra-op threads while this file runs: the suite runs several
-    files at once."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(saved)
 
 
 @pytest.fixture(scope="module")

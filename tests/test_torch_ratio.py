@@ -29,6 +29,7 @@ from mmhand_torch.config import Config, DataConfig, ModelConfig
 from mmhand_torch.data.rhd_tree import write_rhd_tree
 from mmhand_torch.hpe.data import HPEMixDataset, augmentation_dir_for
 from mmhand_torch.scripts import mm_train_ratio
+from test_torch_threads import two_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 SIZE, N_TRAIN, N_TEST = 32, 8, 4

@@ -20,6 +20,7 @@ from mmhand_torch.train.precision import LossScaleState
 from mmhand_torch.train.state import build_system
 from mmhand_torch.train.step import LRSchedule, make_train_step
 from mmhand_torch.utils.checkpoint import CheckpointManager
+from test_torch_threads import two_threads  # noqa: F401
 
 
 def _config(tmp_path=None, scaling=False, **run):

@@ -43,6 +43,7 @@ from mmhand_torch.train import step as tstep
 from mmhand_tpu import config as jcfg
 from mmhand_tpu.train import state as jstate
 from mmhand_tpu.train import step as jstep
+from test_torch_threads import two_threads  # noqa: F401
 
 B, SIZE, NGF, BLOCKS, LR = 2, 32, 8, 2, 2e-4
 LOSS_KEYS = {"pair_L1loss", "pair_GANloss", "origin_L1", "perceptual",

@@ -28,16 +28,7 @@ from mmhand_torch.models import voxel_nets as tnets
 from mmhand_torch.models.layers import BatchNorm3d
 from mmhand_torch.ops.bn_stats import bn_moments, rows_view
 from mmhand_tpu.models import voxel_nets as jnets
-
-
-@pytest.fixture(autouse=True, scope="module")
-def two_threads():
-    """Two intra-op threads while this file runs: the suite runs several
-    files at once, and 3-D convolutions take every core otherwise."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(saved)
+from test_torch_threads import two_threads  # noqa: F401
 
 
 # name: (mmhand_tpu net, port net, to port, mmhand_tpu loader, input shape,

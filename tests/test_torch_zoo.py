@@ -32,18 +32,9 @@ from mmhand_torch.scripts import bench_baselines
 from mmhand_tpu.models import baselines as jbase
 from mmhand_tpu.models import generator as jgen
 from mmhand_tpu.models import layers as jlayers
+from test_torch_threads import two_threads  # noqa: F401
 
 ATOL = 1e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def two_threads():
-    """Two intra-op threads while this file runs: the suite runs several
-    files at once, and PoseResNet-50 is full width."""
-    saved = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(saved)
 
 
 def _drawn_stats(stats, seed):
