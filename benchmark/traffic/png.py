@@ -1,0 +1,67 @@
+"""The benchmark's own PNG codec for 8-bit RGB images, on the standard
+library alone: it writes the data trees and reads back the fakes that a
+generation cell wrote, independently of the program's codec."""
+
+from __future__ import annotations
+
+import struct
+import zlib
+
+import numpy as np
+
+_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
+
+def _chunk(kind: bytes, data: bytes) -> bytes:
+    crc = zlib.crc32(kind + data) & 0xFFFFFFFF
+    return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", crc)
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 -> PNG bytes (no row filter, zlib level 6)."""
+    img = np.ascontiguousarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"encode_png takes (H, W, 3) uint8, got "
+                         f"{img.shape} {img.dtype}")
+    h, w, _ = img.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           img.reshape(h, w * 3)], axis=1)
+    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    return (_SIGNATURE + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + _chunk(b"IEND", b""))
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    with open(path, "wb") as f:
+        f.write(encode_png(img))
+
+
+def read_png(path: str) -> np.ndarray:
+    """Decode an 8-bit RGB PNG with unfiltered rows, as ``encode_png`` and
+    the program's writer make them, into (H, W, 3) uint8."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if not data.startswith(_SIGNATURE):
+        raise ValueError(f"{path} is not a PNG")
+    pos, idat, shape = len(_SIGNATURE), [], None
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if kind == b"IHDR":
+            w, h, depth, color, _, _, interlace = struct.unpack(
+                ">IIBBBBB", body)
+            if (depth, color, interlace) != (8, 2, 0):
+                raise ValueError(f"{path}: only 8-bit RGB is read")
+            shape = (h, w)
+        elif kind == b"IDAT":
+            idat.append(body)
+    if shape is None:
+        raise ValueError(f"{path}: no IHDR chunk")
+    h, w = shape
+    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    rows = rows.reshape(h, 1 + w * 3)
+    if rows[:, 0].any():
+        raise ValueError(f"{path}: filtered rows are not read")
+    return rows[:, 1:].reshape(h, w, 3).copy()
