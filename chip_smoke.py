@@ -1032,7 +1032,6 @@ def slice_phase(tmp: Path):
 
     from mmhand_torch.config import Config, DataConfig, ModelConfig
     from mmhand_torch.data import make_prepare_batch
-    from mmhand_torch.ops.heatmap import gaussian_heatmaps
     from mmhand_torch.ops.image import denormalize_image
     from mmhand_torch.scripts import aug
     from mmhand_torch.train.state import build_generator
@@ -1063,12 +1062,12 @@ def slice_phase(tmp: Path):
             "--dst", str(dst), "--device", "cuda"]
     out = io.StringIO()
     torch.cuda.reset_peak_memory_stats()
-    gaussian_heatmaps.launches = 0
+    reset_launches()
     start = time.perf_counter()
     with contextlib.redirect_stdout(out):
         written = aug.main(argv)
     seconds = time.perf_counter() - start
-    launches = gaussian_heatmaps.launches
+    launches = kernel_launches()["gaussian_heatmaps"]
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     print(out.getvalue().strip())
     files = sorted((dst / "tgt").glob("*.png"))
@@ -1229,8 +1228,6 @@ def train_slice_phase(tmp: Path) -> tuple[dict, float]:
 
     from mmhand_torch.config import Config, DataConfig, ModelConfig
     from mmhand_torch.data import make_prepare_batch
-    from mmhand_torch.ops.bn_stats import bn_sums, bn_sums_backward
-    from mmhand_torch.ops.heatmap import gaussian_heatmaps
     from mmhand_torch.scripts import aug
     from mmhand_torch.scripts import train as train_script
     from mmhand_torch.train.state import build_system
@@ -1245,16 +1242,13 @@ def train_slice_phase(tmp: Path) -> tuple[dict, float]:
             "--name", "train_smoke", "--device", "cuda"]
     out = io.StringIO()
     torch.cuda.reset_peak_memory_stats()
-    gaussian_heatmaps.launches = 0
-    bn_sums.launches = bn_sums_backward.launches = 0
+    reset_launches()
     start = time.perf_counter()
     with warnings.catch_warnings(), contextlib.redirect_stdout(out):
         warnings.simplefilter("ignore")  # the random-VGG warning
         result = train_script.main(argv)
     seconds = time.perf_counter() - start
-    launches = {"gaussian_heatmaps": gaussian_heatmaps.launches,
-                "bn_sums": bn_sums.launches,
-                "bn_sums_backward": bn_sums_backward.launches}
+    launches = kernel_launches()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     print(out.getvalue().strip())
 
@@ -1345,15 +1339,19 @@ def train_slice_phase(tmp: Path) -> tuple[dict, float]:
     return launches, times["whole step"]
 
 
-def kernel_counters() -> dict:
-    """The port's kernel wrappers, each with its ``.launches`` count."""
-    from mmhand_torch.ops.bn_stats import bn_sums, bn_sums_backward
-    from mmhand_torch.ops.heatmap import gaussian_heatmaps
-    from mmhand_torch.ops.jointsmap import generate_jointsmap
+def kernel_launches() -> dict:
+    """The launches of the port's four kernels since the counters of
+    ``utils.trace`` were last reset, by their wrappers' names."""
+    from mmhand_torch.scripts import train
 
-    return {"gaussian_heatmaps": gaussian_heatmaps, "bn_sums": bn_sums,
-            "bn_sums_backward": bn_sums_backward,
-            "generate_jointsmap": generate_jointsmap}
+    return train.kernel_launches(tuple(train.LAUNCH_COUNTERS))
+
+
+def reset_launches() -> None:
+    """Set the counters of ``utils.trace`` back to nothing."""
+    from mmhand_torch.utils import trace
+
+    trace.reset()
 
 
 def flagship_config(ckpt: Path, name: str, **precision):
@@ -1399,15 +1397,13 @@ def fp16_train_phase(tmp: Path) -> dict:
     steps = TRAIN["steps"]
     cfg = flagship_config(tmp / "fp16_ckpt", "fp16", compute_dtype="float16",
                           loss_scaling=True)
-    counters = kernel_counters()
     out = io.StringIO()
     torch.cuda.reset_peak_memory_stats()
-    for f in counters.values():
-        f.launches = 0
+    reset_launches()
     with warnings.catch_warnings(), contextlib.redirect_stdout(out):
         warnings.simplefilter("ignore")  # the random-VGG warning
         result = train(cfg, device="cuda", max_steps=steps)
-    launches = {k: f.launches for k, f in counters.items()}
+    launches = kernel_launches()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     system = result.system
     check(result.steps == steps and system.step == steps,
@@ -1676,14 +1672,12 @@ def dp_worker(out: str) -> None:
     device = init_distributed("cuda")
     try:
         cfg = flagship_config(Path(out).parent / "nccl_ckpt", "nccl")
-        counters = kernel_counters()
-        for f in counters.values():
-            f.launches = 0
+        reset_launches()
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
             result = train(cfg, device=device, max_steps=RESUME_STEPS,
                            distributed=True)
-        launches = {k: f.launches for k, f in counters.items()}
+        launches = kernel_launches()
         batch = make_prepare_batch(cfg.data.sigma, device)(
             raw_batch(cfg, cfg.data.batch_size // dist.get_world_size()))
         step = make_train_step(result.system)
@@ -1811,14 +1805,11 @@ def gloo_worker(out: str) -> None:
     init_distributed("cpu")  # gloo, with the tensors on the card
     try:
         rank = dist.get_rank()
-        counters = kernel_counters()
-        for f in counters.values():
-            f.launches = 0
+        reset_launches()
         legs = gloo_legs(rank, dist.get_world_size(), True)
         if rank == 0:
             torch.save({"legs": legs,
-                        "launches": {k: f.launches
-                                     for k, f in counters.items()}}, out)
+                        "launches": kernel_launches()}, out)
     finally:
         dist.destroy_process_group()
 
@@ -1878,14 +1869,12 @@ def longrun_phase(tmp: Path) -> dict:
             "--batchSize", str(TRAIN["batch"])]
     for k, v in LONGRUN.items():
         argv += [f"--{k}", str(v)]
-    counters = kernel_counters()
-    for f in counters.values():
-        f.launches = 0
+    reset_launches()
     start = time.perf_counter()
     out = longrun_demo.demo(argv)  # prints the demo's JSON line
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
-    ssim_launches = {k: f.launches for k, f in counters.items()}
+    ssim_launches = kernel_launches()
     leg2, steps2 = out["leg2_launches"], LONGRUN["steps2"]
     every = LONGRUN["save_every"]
     check(out["leg1_returncode"] == -9, f"leg 1 ended with "
@@ -2161,17 +2150,15 @@ def _run_main(fn, argv):
 
     import torch
 
-    counted = kernel_counters()
     out = io.StringIO()
-    for f in counted.values():
-        f.launches = 0
+    reset_launches()
     start = time.perf_counter()
     with warnings.catch_warnings(), contextlib.redirect_stdout(out):
         warnings.simplefilter("ignore")  # random Inception/CPM/baseline weights
         result = fn(argv)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
-    launches = {k: f.launches for k, f in counted.items()}
+    launches = kernel_launches()
     return result, out.getvalue().strip(), seconds, launches
 
 
@@ -2892,12 +2879,10 @@ def pose_resnet_phase() -> dict:
         (net(x) * w).sum().backward()
 
     net.train()
-    counted = kernel_counters()
-    for f in counted.values():
-        f.launches = 0
+    reset_launches()
     train_pass()
     torch.cuda.synchronize()
-    launches = {k: f.launches for k, f in counted.items()}
+    launches = kernel_launches()
     check(launches == {"gaussian_heatmaps": 0, "bn_sums": sites,
                        "bn_sums_backward": sites, "generate_jointsmap": 0},
           f"PoseResNet train launches {launches}")
@@ -3011,7 +2996,7 @@ def zoo_nets_phase() -> dict:
     nets = {"NLayerDiscriminator": (NLayerDiscriminator, 3),
             "PixelDiscriminator": (PixelDiscriminator, 1),
             "PATN2Stream": (PATN2Stream, 35)}
-    total = {k: 0 for k in kernel_counters()}
+    total = {k: 0 for k in kernel_launches()}
     for name, (cls, bns) in nets.items():
         gen = torch.Generator().manual_seed(SEED)
         cpu = init_weights(cls(compute_dtype=None), "normal", gen).eval()
@@ -3047,13 +3032,11 @@ def zoo_nets_phase() -> dict:
         hooks = [m.register_forward_pre_hook(
             lambda mod, args: bn_inputs.append(args[0].detach()))
             for m in card.modules() if isinstance(m, BatchNorm2d)]
-        counted = kernel_counters()
-        for f in counted.values():
-            f.launches = 0
+        reset_launches()
         out = card(big)
         out.float().square().mean().backward()
         torch.cuda.synchronize()
-        launches = {k: f.launches for k, f in counted.items()}
+        launches = kernel_launches()
         for h in hooks:
             h.remove()
         check(bool(torch.isfinite(out).all())
@@ -3607,7 +3590,7 @@ def msra_v2v_phase(tmp: Path) -> dict:
             MSRA["depth_d_batch"], 256, 256, 1, device="cuda",
             generator=torch.Generator(device="cuda").manual_seed(SEED)) * 2 - 1,
     }
-    total = {k: 0 for k in kernel_counters()}
+    total = {k: 0 for k in kernel_launches()}
     sites = {}
     for name, net in _msra_nets(gen).items():
         net = net.to(device="cuda", memory_format=_layout(name)).train()
@@ -3630,12 +3613,10 @@ def msra_v2v_phase(tmp: Path) -> dict:
         hooks = [m.register_forward_pre_hook(
             lambda mod, args: bn_inputs.append(args[0].detach()))
             for m in net.modules() if isinstance(m, (BatchNorm2d, BatchNorm3d))]
-        counted = kernel_counters()
-        for f in counted.values():
-            f.launches = 0
+        reset_launches()
         loss_value = float(step())
         torch.cuda.synchronize()
-        launches = {k: f.launches for k, f in counted.items()}
+        launches = kernel_launches()
         for h in hooks:
             h.remove()
         n_bn = MSRA_BN_SITES[name]

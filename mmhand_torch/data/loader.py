@@ -25,6 +25,7 @@ import torch
 from mmhand_torch.ops.depth import GAN_DEPTH_SCALE, depth_to_rgb_planes
 from mmhand_torch.ops.heatmap import gaussian_heatmaps
 from mmhand_torch.ops.image import normalize_image
+from mmhand_torch.utils import trace
 
 PRERENDERED_KEYS = ("H1", "P1", "D1", "H2", "P2", "D2")
 
@@ -111,6 +112,12 @@ class HostLoader:
         return self._cache[i]
 
     def _assemble(self, idxs) -> dict:
+        """One batch, read on a worker thread: the span ``loader.assemble``
+        (``utils.trace``)."""
+        with trace.span("loader.assemble"):
+            return self._read(idxs)
+
+    def _read(self, idxs) -> dict:
         if getattr(self.dataset, "prerendered", False):
             # items are full rendered dicts
             items = [self.dataset[int(i)] for i in idxs]

@@ -32,6 +32,7 @@ from mmhand_torch.config import Config
 from mmhand_torch.data.datasets import build_dataset
 from mmhand_torch.ops.heatmap import gaussian_heatmaps
 from mmhand_torch.ops.image import normalize_image
+from mmhand_torch.utils import trace
 
 HPE_SIGMA = 5.0   # reference RHD_dataset.py:157
 Z_SCALE = 0.7     # reference RHD_dataset.py:158 depth/0.7
@@ -151,7 +152,10 @@ class HPEMixDataset:
         }
 
     def batch(self, indices) -> dict:
-        items = [self.load_item(int(i)) for i in indices]
+        """The items of ``indices`` stacked; their reads are the span
+        ``hpe.decode`` (``utils.trace``)."""
+        with trace.span("hpe.decode"):
+            items = [self.load_item(int(i)) for i in indices]
         return {
             "image": np.stack([it["image"] for it in items]),
             "uv": np.stack([it["uv"] for it in items]),

@@ -42,6 +42,7 @@ from mmhand_torch.train.state import (
     load_adam_state_dict,
     make_adam,
 )
+from mmhand_torch.utils import trace
 
 STAGE_LOSS_SCALE = 1000.0  # reference hpm_model.py:173
 VARIANTS = ("hpm", "hpm2d", "hpm3d")
@@ -112,11 +113,14 @@ class HPESystem:
         gen = torch.Generator().manual_seed(cfg.data.seed)
         self.hpm2d = self.hpm3d = self.opt2d = self.opt3d = None
         if variant in ("hpm", "hpm2d"):
-            self.hpm2d = _place(init_lecun_normal(Hpm2d(), gen), self.device)
+            with trace.timed("setup.init_weights_s"):
+                self.hpm2d = _place(init_lecun_normal(Hpm2d(), gen),
+                                    self.device)
             self.opt2d = make_adam(self.hpm2d, cfg)
         if variant in ("hpm", "hpm3d"):
-            self.hpm3d = _place(init_lecun_normal(
-                Hpm3d(size=cfg.model.fine_size), gen), self.device)
+            with trace.timed("setup.init_weights_s"):
+                self.hpm3d = _place(init_lecun_normal(
+                    Hpm3d(size=cfg.model.fine_size), gen), self.device)
             self.opt3d = make_adam(self.hpm3d, cfg)
 
     def autocast(self):
@@ -151,10 +155,14 @@ def _update(system: HPESystem, net: nn.Module, opt: torch.optim.Adam,
     for group in opt.param_groups:
         group["lr"] = lr
     opt.zero_grad(set_to_none=True)
-    loss.backward()
+    device = system.device
+    with trace.span("backward", device):
+        loss.backward()
     if system.distributed:
-        all_reduce_grads(net)
-    opt.step()
+        with trace.span("allreduce", device):
+            all_reduce_grads(net)
+    with trace.span("adam", device):
+        opt.step()
 
 
 def make_hpe_train_step(system: HPESystem):
@@ -163,13 +171,20 @@ def make_hpe_train_step(system: HPESystem):
     batch: {image (B, S, S, 3) in [-1, 1], heatmaps (B, S, S, 21) sigma-5
     ground truth, z (B, 21) depth / 0.7, weight (B,) 0/1} on the system's
     device.  metrics: {"mse"} and/or {"lz"} as 0-d f32 tensors, averaged
-    over the ranks."""
+    over the ranks.  Each call begins a step (``utils.trace``) and is the
+    host span ``step``; each net's update is a ``backward`` and an ``adam``
+    span on the device."""
     variant = system.variant
     # hpm3d single-net quirk: SmoothL1 x10 (reference hpm3d_model.py:105);
     # the joint trainer applies it unscaled (hpm_model.py:108-115)
     lz_scale = 10.0 if variant == "hpm3d" else 1.0
 
     def train_step(batch: dict, lr: float) -> dict:
+        trace.begin_step()
+        with trace.span("step"):
+            return _train_step(batch, lr)
+
+    def _train_step(batch: dict, lr: float) -> dict:
         image, heat = batch["image"], batch["heatmaps"]
         z, w = batch["z"], batch["weight"]
         metrics = {}

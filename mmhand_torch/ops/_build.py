@@ -19,6 +19,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+from mmhand_torch.utils import trace
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -64,7 +66,8 @@ def _run(procs: list[tuple[list[str], subprocess.Popen]]) -> None:
 
 def build(out: Path) -> None:
     """Compile every csrc/*.cu, one nvcc each in parallel, and link them into
-    ``out`` (written atomically)."""
+    ``out`` (written atomically); counted in ``kernels.builds``."""
+    trace.count("kernels.builds")
     out.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
@@ -86,8 +89,10 @@ def build(out: Path) -> None:
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
-    """The kernels' shared library, built first if it is missing."""
-    path = library_path()
-    if not path.exists():
-        build(path)
-    return ctypes.CDLL(str(path))
+    """The kernels' shared library, built first if it is missing; its
+    seconds add to the counter ``setup.kernel_library_s``."""
+    with trace.timed("setup.kernel_library_s"):
+        path = library_path()
+        if not path.exists():
+            build(path)
+        return ctypes.CDLL(str(path))

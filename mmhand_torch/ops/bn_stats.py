@@ -13,7 +13,8 @@ version beside them, a CUDA tensor to the hand-written kernels K2 and K2b in
 a 4-D tensor in ``channels_last`` memory or a 5-D one in ``channels_last_3d``,
 which is the (N = B*H*W or B*D*H*W, C) row-major view, in float32, bfloat16
 or float16; anything else raises, with no silent copy.  Each wrapper counts
-its kernel launches in ``.launches``.
+its kernel launches in a counter of ``utils.trace`` (``k2.launches``,
+``k2b.launches``).
 
 K2's cut of the view (``sums_plan``: 16-byte loads at every C through
 super-rows of lcm(C, vec) elements, one wave of blocks) is decided
@@ -30,6 +31,8 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from mmhand_torch.utils import trace
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -314,7 +317,7 @@ def _bn_sums_cuda(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
                       _tickets(x.device, stream).data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"bn_sums kernel launch failed: cudaError {err}")
-    bn_sums.launches += 1
+    trace.count("k2.launches")
     return out[0], out[1]
 
 
@@ -335,7 +338,7 @@ def _bn_sums_backward_cuda(x: torch.Tensor, g1: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"bn_sums_backward kernel launch failed: "
                            f"cudaError {err}")
-    bn_sums_backward.launches += 1
+    trace.count("k2b.launches")
     return dx
 
 
@@ -359,10 +362,6 @@ def bn_sums_backward(x: torch.Tensor, g1: torch.Tensor,
     if x.device.type == "cuda":
         return _bn_sums_backward_cuda(x, g1, g2)
     raise ValueError(f"bn_sums_backward: no kernel for device {x.device}")
-
-
-bn_sums.launches = 0
-bn_sums_backward.launches = 0
 
 
 class _BnSums(torch.autograd.Function):

@@ -23,6 +23,8 @@ import math
 
 import torch
 
+from mmhand_torch.utils import trace
+
 # Sparsity clip threshold (reference generic_dataset.py:215).
 CLIP_LO = 0.0099
 # The kernel's early-out adds this to the clip's exponent ln(1/CLIP_LO) =
@@ -109,7 +111,7 @@ def _gaussian_heatmaps_cuda(uv: torch.Tensor, height: int, width: int,
     if err != 0:
         raise RuntimeError(f"gaussian_heatmaps kernel launch failed: "
                            f"cudaError {err}")
-    gaussian_heatmaps.launches += 1
+    trace.count("k1.launches")
     return out
 
 
@@ -121,14 +123,11 @@ def gaussian_heatmaps(uv: torch.Tensor, height: int = 256, width: int = 256,
       uv: (..., K, 2) float32 (x, y) pixel coordinates.
     Returns:
       (..., H, W, K) float32 heatmaps on uv's device.  On a CUDA device this
-      is the hand-written kernel, and ``gaussian_heatmaps.launches`` counts
-      its launches.
+      is the hand-written kernel, whose launches the counter
+      ``k1.launches`` of ``utils.trace`` counts.
     """
     if uv.device.type == "cpu":
         return gaussian_heatmaps_ref(uv, height, width, sigma)
     if uv.device.type == "cuda":
         return _gaussian_heatmaps_cuda(uv, height, width, sigma)
     raise ValueError(f"gaussian_heatmaps: no kernel for device {uv.device}")
-
-
-gaussian_heatmaps.launches = 0

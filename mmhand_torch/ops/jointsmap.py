@@ -26,6 +26,8 @@ import math
 
 import torch
 
+from mmhand_torch.utils import trace
+
 # (joint_a, joint_b), colour value; the order decides depth ties
 # (reference generic_dataset.py:33-54).
 HAND_BONES = (
@@ -184,7 +186,7 @@ def _generate_jointsmap_cuda(uv: torch.Tensor, depth: torch.Tensor,
                         batch, height, width, CULL_REL, CULL_PAD, stream)
     if err != 0:
         raise RuntimeError(f"jointsmap kernel launch failed: cudaError {err}")
-    generate_jointsmap.launches += 1
+    trace.count("k3.launches")
     return out
 
 
@@ -198,13 +200,10 @@ def generate_jointsmap(uv: torch.Tensor, depth: torch.Tensor,
     Returns:
       (..., H, W) float32 bone colour values (0 = background) on uv's
       device.  On a CUDA device this is the hand-written kernel, and
-      ``generate_jointsmap.launches`` counts its launches.
+      the counter ``k3.launches`` of ``utils.trace`` counts its launches.
     """
     if uv.device.type == "cpu":
         return generate_jointsmap_ref(uv, depth, height, width)
     if uv.device.type == "cuda":
         return _generate_jointsmap_cuda(uv, depth, height, width)
     raise ValueError(f"generate_jointsmap: no kernel for device {uv.device}")
-
-
-generate_jointsmap.launches = 0

@@ -18,7 +18,8 @@ pools.
   every rank, for the checkpoint.
 
 Every collective is an all-reduce, which NCCL and gloo both take on CUDA
-tensors.  Each function counts the all-reduces it issues in ``.launches``.
+tensors.  Each function counts the all-reduces it issues in the counter
+``collectives.<its name>`` of ``utils.trace``.
 The nets are not wrapped in ``DistributedDataParallel``: the G phase turns
 the discriminators' gradients off and, at DG_ratio 2, each discriminator
 runs two backwards per step, neither of which DDP's reducer expects.
@@ -29,20 +30,22 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from mmhand_torch.utils import trace
+
 
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
         out = x.contiguous().clone()
         dist.all_reduce(out)
-        all_reduce_sum.launches += 1
+        trace.count("collectives.all_reduce_sum")
         return out
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.contiguous().clone()
         dist.all_reduce(grad)
-        all_reduce_sum.launches += 1
+        trace.count("collectives.all_reduce_sum")
         return grad
 
 
@@ -75,7 +78,7 @@ def set_grads_(params: list[torch.Tensor], flat: torch.Tensor) -> None:
 def all_reduce_mean_(flat: torch.Tensor) -> torch.Tensor:
     """``flat`` averaged over the ranks, in place."""
     dist.all_reduce(flat)
-    all_reduce_mean_.launches += 1
+    trace.count("collectives.all_reduce_mean_")
     return flat.div_(dist.get_world_size())
 
 
@@ -92,7 +95,7 @@ def any_rank(flag: torch.Tensor) -> torch.Tensor:
     """True on every rank iff ``flag`` (0-d bool) is True on one."""
     votes = flag.to(torch.int32)
     dist.all_reduce(votes, op=dist.ReduceOp.MAX)
-    any_rank.launches += 1
+    trace.count("collectives.any_rank")
     return votes > 0
 
 
@@ -101,7 +104,7 @@ def mean_metrics(metrics: dict) -> dict:
     keys = list(metrics)
     stacked = torch.stack([metrics[k].float() for k in keys])
     dist.all_reduce(stacked)
-    mean_metrics.launches += 1
+    trace.count("collectives.mean_metrics")
     stacked = stacked / dist.get_world_size()
     return dict(zip(keys, stacked.unbind()))
 
@@ -115,16 +118,16 @@ def gather_ranks(x: torch.Tensor) -> torch.Tensor:
                       device=x.device)
     out[dist.get_rank()] = x
     dist.all_reduce(out)
-    gather_ranks.launches += 1
+    trace.count("collectives.gather_ranks")
     return out
 
 
 COLLECTIVES = (all_reduce_sum, all_reduce_mean_, any_rank, mean_metrics,
                gather_ranks)
-for _f in COLLECTIVES:
-    _f.launches = 0
 
 
 def collective_launches() -> int:
-    """All-reduces issued so far by the functions of this module."""
-    return sum(f.launches for f in COLLECTIVES)
+    """All-reduces issued by the functions of this module since the
+    counters were last reset."""
+    c = trace.counters()
+    return sum(c.get(f"collectives.{f.__name__}", 0) for f in COLLECTIVES)

@@ -28,6 +28,7 @@ from mmhand_torch.data import HostLoader, build_dataset, make_prepare_batch
 from mmhand_torch.ops.image import denormalize_image
 from mmhand_torch.train.state import build_generator
 from mmhand_torch.train.step import make_eval_step
+from mmhand_torch.utils import trace
 from mmhand_torch.utils.checkpoint import load_state_dict, network_path
 from mmhand_torch.utils.png import write_png
 
@@ -77,7 +78,9 @@ def generate(cfg: Config, dst: str, batch_size: int = 16, device="cuda",
         batch = prepare({k: v for k, v in raw.items()
                          if not k.endswith("paths")})
         # denormalize on the device and fetch uint8: 4x less traffic
-        fakes = denormalize_image(eval_step(batch)).cpu().numpy()
+        fake = denormalize_image(eval_step(batch))
+        with trace.span("gen.fetch"):  # the host's wait for the batch
+            fakes = fake.cpu().numpy()
         for i, tgt_path in enumerate(raw["tgt_paths"]):
             folder = os.path.basename(os.path.dirname(tgt_path))
             name = os.path.basename(tgt_path)

@@ -20,7 +20,8 @@ launched by torchrun: NCCL on ``cuda:LOCAL_RANK``, or gloo with
         -m mmhand_torch.scripts.train --multihost --dataset synthetic ...
 
 ``--profile`` writes a torch.profiler trace of the first steps (3 unless
---max_steps says otherwise) to ``<checkpoints_dir>/<name>/trace``.  Float16
+--max_steps says otherwise) to ``<checkpoints_dir>/<name>/trace``, and
+beside it the program's spans and counters (``program.json``).  Float16
 with loss scaling is ``PrecisionConfig(compute_dtype="float16",
 loss_scaling=True)`` through ``train()``; the command line has no flag for
 either, as mmhand_tpu's has none.
@@ -39,6 +40,7 @@ import torch.distributed as dist
 from mmhand_torch.config import Config, add_cli_args, from_cli_args
 from mmhand_torch.parallel import init_distributed
 from mmhand_torch.train.loop import TrainResult, train
+from mmhand_torch.utils import trace
 from mmhand_torch.utils.logging import profile_trace
 
 
@@ -98,17 +100,21 @@ def main(argv=None) -> TrainResult:
 
 
 LAUNCHES_LINE = "kernel launches: "
+# each kernel's launch counter in ``utils.trace``, by its wrapper's name
+LAUNCH_COUNTERS = {"gaussian_heatmaps": "k1.launches",
+                   "bn_sums": "k2.launches",
+                   "bn_sums_backward": "k2b.launches",
+                   "generate_jointsmap": "k3.launches"}
 
 
-def kernel_launches() -> dict:
-    """The launches of the train step's kernels in this process: K1
-    (heatmaps) and K2 and K2b (BatchNorm sums); 0 on the CPU, where the
-    plain versions run."""
-    from mmhand_torch.ops.bn_stats import bn_sums, bn_sums_backward
-    from mmhand_torch.ops.heatmap import gaussian_heatmaps
-
-    return {f.__name__: f.launches
-            for f in (gaussian_heatmaps, bn_sums, bn_sums_backward)}
+def kernel_launches(names=("gaussian_heatmaps", "bn_sums",
+                           "bn_sums_backward")) -> dict:
+    """The launches of the kernels of ``names`` (by default the train
+    step's: K1, the heatmaps, and K2 and K2b, the BatchNorm sums) since the
+    counters were last reset; 0 on the CPU, where the plain versions
+    run."""
+    counted = trace.counters()
+    return {k: counted.get(LAUNCH_COUNTERS[k], 0) for k in names}
 
 
 if __name__ == "__main__":

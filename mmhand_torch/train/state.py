@@ -32,6 +32,7 @@ from mmhand_torch.models.layers import NormConfig, init_weights
 from mmhand_torch.models.vgg import VGG19Features, load_vgg19_npz
 from mmhand_torch.train.pool import PoolState, pool_init
 from mmhand_torch.train.precision import LossScaleState, init_scales
+from mmhand_torch.utils import trace
 
 _COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -80,20 +81,24 @@ def build_generator(cfg: Config, device="cuda", seed: Optional[int] = None,
                     cross_rank: bool = False) -> Generator:
     """The configured Generator, its weights drawn on the CPU from ``seed``
     (``cfg.data.seed`` when None), moved to ``device`` as channels_last;
-    ``cross_rank`` syncs its BatchNorm statistics over the ranks."""
+    ``cross_rank`` syncs its BatchNorm statistics over the ranks.  The
+    seconds add to the counter ``setup.init_weights_s`` (``utils.trace``)."""
     rng = torch.Generator().manual_seed(cfg.data.seed if seed is None else seed)
-    return _place(init_weights(make_generator(cfg, cross_rank),
-                               cfg.model.init_type, rng), device)
+    with trace.timed("setup.init_weights_s"):
+        return _place(init_weights(make_generator(cfg, cross_rank),
+                                   cfg.model.init_type, rng), device)
 
 
 def build_discriminator(cfg: Config, input_nc: int, device="cuda",
                         seed: int = 0, cross_rank: bool = False
                         ) -> Discriminator:
     """A configured Discriminator on ``input_nc`` channels, its weights drawn
-    on the CPU from ``seed``, moved to ``device`` as channels_last."""
-    return _place(init_weights(make_discriminator(cfg, input_nc, cross_rank),
-                               cfg.model.init_type,
-                               torch.Generator().manual_seed(seed)), device)
+    on the CPU from ``seed``, moved to ``device`` as channels_last; timed as
+    ``build_generator``."""
+    with trace.timed("setup.init_weights_s"):
+        return _place(init_weights(
+            make_discriminator(cfg, input_nc, cross_rank),
+            cfg.model.init_type, torch.Generator().manual_seed(seed)), device)
 
 
 def random_vgg(truncate_at: int, seed: int,
@@ -246,18 +251,22 @@ def build_system(cfg: Config, device="cuda", *, vgg_npz: Optional[str] = None,
 
     l1_loss = None
     if lc.l1_type != "origin":
-        if vgg_npz:
-            vgg = VGG19Features(lc.perceptual_layers, compute_dtype=dtype)
-            vgg.load_state_dict(load_vgg19_npz(vgg_npz, lc.perceptual_layers))
-        else:
+        if not vgg_npz:
             warnings.warn(
                 "perceptual loss running with RANDOM VGG19 weights (a "
                 "random-projection loss, structurally valid but NOT the "
                 "reference's ImageNet-VGG perceptual term; pass --vgg_npz "
                 "converted weights for parity)", stacklevel=2)
-            vgg = random_vgg(lc.perceptual_layers, seed + 3, dtype)
+        with trace.timed("setup.init_weights_s"):
+            if vgg_npz:
+                vgg = VGG19Features(lc.perceptual_layers, compute_dtype=dtype)
+                vgg.load_state_dict(load_vgg19_npz(vgg_npz,
+                                                   lc.perceptual_layers))
+            else:
+                vgg = random_vgg(lc.perceptual_layers, seed + 3, dtype)
+            vgg = _place(vgg, device)
         l1_loss = L1PlusPerceptual(
-            _place(vgg, device), lambda_l1=lc.lambda_a,
+            vgg, lambda_l1=lc.lambda_a,
             lambda_perceptual=lc.lambda_b, percep_is_l1=lc.percep_is_l1)
 
     size, pool = m.fine_size, cfg.optim.pool_size

@@ -53,6 +53,7 @@ from mmhand_torch.parallel.sharding import (
 from mmhand_torch.train.pool import pool_query_random
 from mmhand_torch.train.precision import grads_overflow, unscale_, update_scale
 from mmhand_torch.train.state import MMHandSystem
+from mmhand_torch.utils import trace
 
 
 def lr_for_epoch(cfg, epoch: int) -> float:
@@ -142,7 +143,12 @@ def _as_loss(*nets: torch.nn.Module):
 class TrainStep:
     """``step(batch, lr) -> metrics`` over a MMHandSystem; ``batch`` is a dict
     of NHWC float32 tensors H1, P1, D1, H2, P2, D2 on the system's device.
-    The phases are methods, so that each can be timed alone."""
+    The phases are methods, so that each can be timed alone.
+
+    Spans (``utils.trace``): ``step`` on the host around the call, which
+    begins a step; on the device ``g_phase``, then ``replay`` and
+    ``d_phase`` for D_PP and again for D_PB, each phase with its
+    ``backward`` and ``adam`` (and ``allreduce`` over several ranks)."""
 
     def __init__(self, system: MMHandSystem):
         self.system = system
@@ -154,6 +160,11 @@ class TrainStep:
         self.overflow: Optional[torch.Tensor] = None
 
     def __call__(self, batch: dict, lr: float) -> dict:
+        trace.begin_step()
+        with trace.span("step"):
+            return self._step(batch, lr)
+
+    def _step(self, batch: dict, lr: float) -> dict:
         fake, metrics = self.g_phase(batch, lr)
         h1, h2, p2 = batch["H1"], batch["H2"], batch["P2"]
         real_pp = torch.cat([h2, h1], -1)
@@ -180,27 +191,35 @@ class TrainStep:
         the loss's scaler: 'g', 'd_pp' or 'd_pb'.  The G phase starts the
         step's overflow flag, the D phases add to it."""
         s = self.system
+        device = s.device
         if s.scales is None:
-            loss.backward()
+            with trace.span("backward", device):
+                loss.backward()
             if s.distributed:
-                all_reduce_grads(net)
-            opt.step()
+                with trace.span("allreduce", device):
+                    all_reduce_grads(net)
+            with trace.span("adam", device):
+                opt.step()
             return
         scale = s.scales[which]
-        (loss * scale.scale).backward()
-        params = [p for p in net.parameters() if p.requires_grad]
-        flat = unscale_(flat_grads(params), scale)
-        overflow = grads_overflow(flat)
+        with trace.span("backward", device):
+            (loss * scale.scale).backward()
+            params = [p for p in net.parameters() if p.requires_grad]
+            flat = unscale_(flat_grads(params), scale)
+            overflow = grads_overflow(flat)
         if s.distributed:
-            overflow = any_rank(overflow)
+            with trace.span("allreduce", device):
+                overflow = any_rank(overflow)
         s.scales[which] = update_scale(scale, overflow)
         self.overflow = (overflow if which == "g"
                          else self.overflow | overflow)
         if s.distributed:
-            all_reduce_mean_(flat)
+            with trace.span("allreduce", device):
+                all_reduce_mean_(flat)
         set_grads_(params, flat)
         if not bool(self.overflow):  # the phase's host sync
-            opt.step()
+            with trace.span("adam", device):
+                opt.step()
 
     def l1_terms(self, fake, real):
         """(pair_L1loss, origin_L1, perceptual)."""
@@ -214,6 +233,10 @@ class TrainStep:
     def g_phase(self, batch: dict, lr: float):
         """One G update; returns the detached pre-update fake and the four
         G metrics."""
+        with trace.span("g_phase", self.system.device):
+            return self._g_phase(batch, lr)
+
+    def _g_phase(self, batch: dict, lr: float):
         s = self.system
         for net in (s.generator, s.d_pb, s.d_pp):
             net.train()
@@ -239,13 +262,20 @@ class TrainStep:
         """Query pool ``which`` ('pp' or 'pb') with a batch of fakes."""
         s = self.system
         name = f"pool_{which}"
-        state, out = pool_query_random(getattr(s, name), images, s.pool_rng)
+        with trace.span("replay", s.device):
+            state, out = pool_query_random(getattr(s, name), images,
+                                           s.pool_rng)
         setattr(s, name, state)
         return out
 
     def d_phase(self, which: str, real: torch.Tensor, fake: torch.Tensor,
                 lr: float) -> torch.Tensor:
         """One step of D_PP or D_PB (reference backward_D_basic :263-274)."""
+        with trace.span("d_phase", self.system.device):
+            return self._d_phase(which, real, fake, lr)
+
+    def _d_phase(self, which: str, real: torch.Tensor, fake: torch.Tensor,
+                 lr: float) -> torch.Tensor:
         s = self.system
         net, opt = ((s.d_pp, s.opt_d_pp) if which == "pp"
                     else (s.d_pb, s.opt_d_pb))
@@ -265,11 +295,14 @@ def make_train_step(system: MMHandSystem) -> TrainStep:
 def make_eval_step(generator: Generator):
     """Generator-only forward for aug/eval (reference MMHandModel.test
     :223-230, aug.py:49-53): batch dict of NHWC tensors -> (B, H, W, 3)
-    float32 fakes, in eval mode under ``torch.inference_mode``."""
+    float32 fakes, in eval mode under ``torch.inference_mode``.  Each call
+    begins a step (``utils.trace``) and is the device span ``gen.forward``."""
 
     def eval_step(batch: dict) -> torch.Tensor:
         generator.eval()
-        with torch.inference_mode():
+        trace.begin_step()
+        with (trace.span("gen.forward", batch["H1"].device),
+              torch.inference_mode()):
             g_in = (batch["H1"],
                     torch.cat([batch["P1"], batch["P2"]], dim=-1),
                     torch.cat([batch["D1"], batch["D2"]], dim=-1))

@@ -22,6 +22,7 @@ import torch.distributed as dist
 from torch import nn
 
 from mmhand_torch.parallel.sharding import gather_ranks
+from mmhand_torch.utils import trace
 
 
 def network_path(checkpoints_dir: str, name: str, which_epoch: str = "latest",
@@ -71,6 +72,11 @@ class CheckpointManager:
         return os.path.join(self.root, f"state_{label}.pt")
 
     def save(self, system, label: str = "latest") -> None:
+        """The span ``ckpt.save`` (``utils.trace``): the step's stall."""
+        with trace.span("ckpt.save"):
+            self._save(system, label)
+
+    def _save(self, system, label: str) -> None:
         state = system.state_dict()
         own = state.pop("rank")
         if system.distributed:

@@ -10,7 +10,8 @@ mmhand_tpu/utils/logging.py).
   100-113) as the serverless SVG/HTML pair of ``utils/liveplot.py``, when
   --display_id > 0 as in the reference;
 * snapshots under ``web/images`` with an HTML gallery;
-* a ``torch.profiler`` trace of one scope under ``<name>/trace``.
+* ``profile_trace``: a ``torch.profiler`` trace of one scope, with the
+  program's spans and counters (``utils.trace``) beside it.
 
 Only the master rank writes; on the others every method does nothing.
 """
@@ -19,6 +20,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 import os
 import time
 
@@ -97,28 +99,30 @@ class Visualizer:
             gallery.add_images([name], [name])
         gallery.save()
 
-    @contextlib.contextmanager
-    def profile(self, enable: bool = True, subdir: str = "trace"):
-        """``profile_trace`` of the scope into ``<name>/<subdir>``."""
-        if not (enable and self.master):
-            yield
-            return
-        with profile_trace(os.path.join(self.dir, subdir)):
-            yield
-
 
 @contextlib.contextmanager
 def profile_trace(trace_dir: str):
     """A torch.profiler trace of the scope, host and (with a card) device
     activity, written as ``<trace_dir>/trace.json`` (Chrome trace format)
-    when the scope ends.  A failing profiler raises."""
+    when the scope ends, and beside it ``program.json``: the program's spans
+    of the scope (``utils.trace``, which records while the profiler does),
+    their bounds in unix-epoch ns as the profiler's timestamps, each device
+    span's milliseconds, and the counters.  A failing profiler raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from mmhand_torch.utils import trace
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(trace_dir, exist_ok=True)
+    trace.clear()
     with profile(activities=activities) as prof:
         yield
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+    with open(os.path.join(trace_dir, "program.json"), "w") as f:
+        json.dump({"spans": [s.as_dict() for s in trace.spans()],
+                   "counters": trace.counters()}, f)

@@ -1,4 +1,6 @@
-"""A small PNG codec for 8-bit RGB images, on the standard library alone."""
+"""A small PNG codec for 8-bit RGB images, on the standard library and
+numpy alone; each ``write_png`` is the span ``png.encode`` of
+``utils.trace``."""
 
 from __future__ import annotations
 
@@ -6,6 +8,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from mmhand_torch.utils import trace
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
@@ -31,7 +35,7 @@ def encode_png(img: np.ndarray) -> bytes:
 
 
 def write_png(path: str, img: np.ndarray) -> None:
-    with open(path, "wb") as f:
+    with trace.span("png.encode"), open(path, "wb") as f:
         f.write(encode_png(img))
 
 

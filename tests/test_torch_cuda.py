@@ -44,7 +44,14 @@ from mmhand_torch.ops.heatmap import (
 )
 from mmhand_torch.ops.jointsmap import generate_jointsmap, generate_jointsmap_ref
 from mmhand_torch.train.state import build_system
-from mmhand_torch.train.step import make_train_step
+from mmhand_torch.train.step import make_eval_step, make_train_step
+from mmhand_torch.utils import trace
+
+
+def launches(kernel: str) -> int:
+    """The launches of ``kernel`` ('k1', 'k2', 'k2b', 'k3') counted in
+    ``utils.trace``."""
+    return trace.counters().get(f"{kernel}.launches", 0)
 
 
 @pytest.fixture
@@ -74,10 +81,10 @@ def test_heatmap_kernel_matches_plain(cuda, batch, height, width):
     uv_np = np.random.RandomState(7).uniform(
         -10, width + 10, (batch, 21, 2)).astype(np.float32)
     uv = torch.from_numpy(uv_np).to(cuda)
-    before = gaussian_heatmaps.launches
+    before = launches("k1")
     got = gaussian_heatmaps(uv, height, width, 6.0)
     torch.cuda.synchronize()
-    assert gaussian_heatmaps.launches == before + 1
+    assert launches("k1") == before + 1
     assert got.shape == (batch, height, width, 21) and got.is_cuda
     want = gaussian_heatmaps_ref(uv, height, width, 6.0)
     keep = _off_clip_boundary(uv_np, height, width)
@@ -213,13 +220,13 @@ def test_bn_kernels_match_plain(cuda, shape, dtype, offset):
     x, gen = _bn_input(shape, dtype, offset, 3, cuda)
     if offset:
         assert x.data_ptr() % 16
-    before = (bn_sums.launches, bn_sums_backward.launches)
+    before = (launches("k2"), launches("k2b"))
     s1, s2 = bn_sums(x)
     g1 = torch.randn(shape[1], generator=gen, device=cuda)
     g2 = torch.randn(shape[1], generator=gen, device=cuda)
     dx = bn_sums_backward(x, g1, g2)
     torch.cuda.synchronize()
-    assert (bn_sums.launches, bn_sums_backward.launches) == (
+    assert (launches("k2"), launches("k2b")) == (
         before[0] + 1, before[1] + 1)
     r1, r2 = bn_sums_ref(x)
     assert float(((s1 - r1).abs() / x.float().abs().sum((0, 2, 3))).max()) <= 1e-5
@@ -261,10 +268,10 @@ def test_bn_sums_in_cuda_graph_equal_eager(cuda, shape, dtype, offset):
         bn_sums(x)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    before = bn_sums.launches
+    before = launches("k2")
     with torch.cuda.graph(graph):
         outs = [bn_sums(x) for _ in range(3)]
-    assert bn_sums.launches == before + 3
+    assert launches("k2") == before + 3
     for _ in range(3):
         for o in outs:
             o[0].zero_()
@@ -333,9 +340,9 @@ def test_bn_sums_on_empty_view_at_unaligned_base(cuda, dtype):
     x, _ = _bn_input((2, 3, 1, 1), dtype, 1, 8, cuda)
     empty = x[1:]
     assert empty.numel() == 0
-    before = bn_sums.launches
+    before = launches("k2")
     s1, s2 = bn_sums(empty)
-    assert bn_sums.launches == before + 1
+    assert launches("k2") == before + 1
     assert torch.equal(s1, torch.zeros(3, device=cuda))
     assert torch.equal(s2, torch.zeros(3, device=cuda))
     dx = bn_sums_backward(empty, torch.ones(3, device=cuda),
@@ -403,6 +410,100 @@ def test_toy_train_step_on_card_matches_cpu(cuda):
         assert outside <= 0.005 * total, f"{name}: {outside} of {total}"
 
 
+def _profiled(fn):
+    """``fn()`` under a host and device profiler, after a warm-up call;
+    returns the program's spans and the profiler's events of that call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    trace.clear()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        spans = trace.spans()
+    finally:
+        trace.clear()
+    return spans, list(prof.profiler.kineto_results.events())
+
+
+def _launched_in(spans, events, kernel_name):
+    """Each device kernel whose name holds ``kernel_name``, with the host
+    call that launched it (same correlation id) and the spans whose
+    converted bounds enclose that call."""
+    cuda_type = torch.autograd.DeviceType.CUDA
+    # the runtime and driver calls (cudaLaunchKernel, cuLaunchKernel, ...)
+    calls = {e.correlation_id(): e for e in events
+             if e.device_type() != cuda_type and e.name().startswith("cu")}
+    out = []
+    for k in events:
+        if (k.device_type() == cuda_type and not k.is_user_annotation()
+                and kernel_name in k.name()):
+            call = calls.get(k.correlation_id())
+            inside = [] if call is None else [
+                s for s in spans
+                if s.start_ns <= call.start_ns() <= call.end_ns() <= s.end_ns]
+            out.append((k, call, inside))
+    return out
+
+
+@pytest.mark.cuda
+def test_program_spans_enclose_their_kernels(cuda, record_property):
+    """On the profiler's clock: every K2 launch of a toy GAN step lies inside
+    exactly one of its ``g_phase`` and ``d_phase`` spans and runs after that
+    span began; every kernel of an eval step is launched inside its
+    ``gen.forward`` span; a phase's CUDA-event time covers its kernels."""
+    cfg = Config(model=ModelConfig(fine_size=32, ngf=8, ndf=8, g_n_blocks=1,
+                                   n_layers_d=1),
+                 optim=OptimConfig(pool_size=2),
+                 data=DataConfig(dataset="synthetic"),
+                 precision=PrecisionConfig(compute_dtype="float32"))
+    with pytest.warns(UserWarning, match="RANDOM VGG19"):
+        system = build_system(cfg, cuda)
+    step = make_train_step(system)
+    rng = np.random.RandomState(3)
+    batch = {k: torch.from_numpy(rng.uniform(
+        0, 1, (2, 32, 32, 21 if k[0] == "P" else 3)).astype(np.float32)
+    ).to(cuda) for k in ("H1", "P1", "D1", "H2", "P2", "D2")}
+    spans, events = _profiled(lambda: step(batch, 2e-4))
+    phases = [s for s in spans if s.name in ("g_phase", "d_phase")]
+    assert [s.name for s in sorted(phases, key=lambda s: s.start_ns)] == [
+        "g_phase", "d_phase", "d_phase"]
+    found = _launched_in(phases, events, "bn_sums_kernel")
+    assert found and all(call is not None for _, call, _ in found)
+    margins, per_phase = [], {s.id: [] for s in phases}
+    for k, call, inside in found:
+        assert len(inside) == 1, (call.start_ns(), [(s.name, s.start_ns,
+                                                     s.end_ns) for s in phases])
+        (s,) = inside
+        assert k.start_ns() >= s.start_ns
+        margins.append(min(call.start_ns() - s.start_ns,
+                           s.end_ns - call.end_ns()))
+        per_phase[s.id].append(k)
+    assert all(per_phase.values())
+    for s in phases:
+        ks = per_phase[s.id]
+        extent_ms = (max(k.end_ns() for k in ks)
+                     - min(k.start_ns() for k in ks)) / 1e6
+        record_property(f"{s.name}_{s.id}_device_ms", s.device_ms)
+        record_property(f"{s.name}_{s.id}_k2_extent_ms", extent_ms)
+        assert s.device_ms >= 0.95 * extent_ms
+    record_property("k2_launches", len(found))
+    record_property("least_margin_us", min(margins) / 1e3)
+
+    g = system.generator
+    spans, events = _profiled(lambda: make_eval_step(g)(batch))
+    (forward,) = [s for s in spans if s.name == "gen.forward"]
+    found = _launched_in([forward], events, "")
+    assert found and all(call is not None and inside == [forward]
+                         for _, call, inside in found)
+    assert min(k.start_ns() for k, _, _ in found) >= forward.start_ns
+    record_property("gen_forward_kernels", len(found))
+    record_property("gen_forward_device_ms", forward.device_ms)
+
+
 @pytest.mark.cuda
 def test_train_state_on_card_restores_tensor_for_tensor(cuda, tmp_path):
     """A train state saved from the card and loaded with map_location onto
@@ -459,7 +560,6 @@ def test_sync_bn_world_one_over_nccl_equals_plain(cuda):
 
     from mmhand_torch.models.layers import BatchNorm2d
     from mmhand_torch.parallel.dryrun import free_port
-    from mmhand_torch.parallel.sharding import all_reduce_sum
 
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
                             rank=0, world_size=1)
@@ -477,9 +577,9 @@ def test_sync_bn_world_one_over_nccl_equals_plain(cuda):
             y = bn(xr)
             (y * w).sum().backward()
             outs.append((y.detach(), xr.grad, bn.running_var.clone()))
-        before = all_reduce_sum.launches
+        before = trace.counters().get("collectives.all_reduce_sum", 0)
         synced(x)
-        assert all_reduce_sum.launches == before + 1
+        assert trace.counters().get("collectives.all_reduce_sum", 0) == before + 1
     finally:
         dist.destroy_process_group()
     for a, b in zip(*outs):
@@ -552,10 +652,10 @@ def test_jointsmap_kernel_equals_cpu_plain(cuda, name, batch, height, width):
     not the yardstick: torch on CUDA divides by a Python scalar as a
     multiply by its reciprocal."""
     uv, z = _jointsmap_case(name, batch, height, width)
-    before = generate_jointsmap.launches
+    before = launches("k3")
     got = generate_jointsmap(uv.to(cuda), z.to(cuda), height, width)
     torch.cuda.synchronize()
-    assert generate_jointsmap.launches == before + 1
+    assert launches("k3") == before + 1
     assert got.shape == (batch, height, width) and got.is_cuda
     assert torch.equal(got.cpu(), generate_jointsmap_ref(uv, z, height, width))
 
@@ -670,9 +770,9 @@ def test_hpe_step_on_card_matches_cpu(cuda, variant, record_property):
         for i in range(steps):
             raw = dataset.batch(range(3 * i, 3 * i + 3))
             raw["weight"] = np.array([1, 1 - i, 1], np.int32)
-            before = gaussian_heatmaps.launches
+            before = launches("k1")
             batch = make_hpe_prepare_batch(device=cuda)(raw)
-            assert gaussian_heatmaps.launches == before + 1
+            assert launches("k1") == before + 1
             # copies of the card's nets as the step starts, on the CPU in
             # float32 and in float64, for its gradients; their optimizer's
             # update is never read
@@ -774,9 +874,9 @@ def test_pix2pixhd_labels_on_card_equal_plain(cuda, tmp_path):
     raw = write_raw_rhd(tmp_path / "raw", 8, seed=2)
     crops = str(tmp_path / "crops")
     n = create_rhd_db(raw, crops, 256, workers=4)
-    before = generate_jointsmap.launches
+    before = launches("k3")
     assert export_pix2pixhd(crops, str(tmp_path / "card"), 256, cuda, 4) == n
-    assert generate_jointsmap.launches == before + -(-n // 4)
+    assert launches("k3") == before + -(-n // 4)
     export_pix2pixhd(crops, str(tmp_path / "cpu"), 256, "cpu", 4)
     names = sorted(os.listdir(tmp_path / "cpu" / "train_label"))
     assert len(names) == n
@@ -837,12 +937,12 @@ def test_pose_resnet_train_bn_on_card_equals_plain(cuda):
     saved = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
-        before = (bn_sums.launches, bn_sums_backward.launches)
+        before = (launches("k2"), launches("k2b"))
         got = card(x.to(cuda))
         (got * w.to(cuda)).sum().backward()
         torch.cuda.synchronize()
-        assert (bn_sums.launches - before[0],
-                bn_sums_backward.launches - before[1]) == (56, 56)
+        assert (launches("k2") - before[0],
+                launches("k2b") - before[1]) == (56, 56)
     finally:
         torch.backends.cudnn.allow_tf32 = saved
     want = net(x)
@@ -884,13 +984,13 @@ def test_bn_kernels_on_5d_input_match_plain(cuda, shape, dtype):
     gen = torch.Generator(device=cuda).manual_seed(channels)
     x = (torch.randn(shape, generator=gen, device=cuda) * 1.5 + 0.3).to(
         dtype).contiguous(memory_format=torch.channels_last_3d)
-    before = (bn_sums.launches, bn_sums_backward.launches)
+    before = (launches("k2"), launches("k2b"))
     s1, s2 = bn_sums(x)
     g1 = torch.randn(channels, generator=gen, device=cuda)
     g2 = torch.randn(channels, generator=gen, device=cuda)
     dx = bn_sums_backward(x, g1, g2)
     torch.cuda.synchronize()
-    assert (bn_sums.launches, bn_sums_backward.launches) == (
+    assert (launches("k2"), launches("k2b")) == (
         before[0] + 1, before[1] + 1)
     r1, r2 = bn_sums_ref(x)
     axes = (0, 2, 3, 4)
@@ -967,7 +1067,7 @@ def test_voxel_nets_train_pass_on_card_matches_cpu(cuda, name,
                                        dtype=o.dtype).view(o.shape)
                     ).sum() for o in outs), outs
 
-    before = (bn_sums.launches, bn_sums_backward.launches)
+    before = (launches("k2"), launches("k2b"))
     decisions = []
     saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
@@ -978,8 +1078,8 @@ def test_voxel_nets_train_pass_on_card_matches_cpu(cuda, name,
         torch.cuda.synchronize()
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
-    assert (bn_sums.launches - before[0],
-            bn_sums_backward.launches - before[1]) == (n_bn, n_bn)
+    assert (launches("k2") - before[0],
+            launches("k2b") - before[1]) == (n_bn, n_bn)
     margins = []
 
     def replayed(model, inp):

@@ -132,8 +132,6 @@ def test_rank_other_than_master_writes_nothing(tmp_path, capsys):
     vis.print_current_errors(1, 1, ERRORS[0], 0.1)
     vis.plot_current_errors(1, 0.5, ERRORS[0])
     vis.save_image(np.zeros((4, 4, 3), np.uint8), "x.png")
-    with vis.profile():
-        pass
     assert not tmp_path.joinpath("run").exists()
     assert capsys.readouterr().out == ""
 
@@ -176,9 +174,16 @@ def test_train_writes_log_plot_and_snapshots(tmp_path, capsys):
 
 
 def test_profile_writes_a_trace(tmp_path):
-    vis = tlog.Visualizer(str(tmp_path), "run")
-    with vis.profile():
-        import torch
-        torch.ones(8).sum()
+    import torch
+
+    from mmhand_torch.utils import trace as program_trace
+
+    with tlog.profile_trace(str(tmp_path / "run" / "trace")):
+        with program_trace.span("toy"):
+            torch.ones(8).sum()
     trace = json.loads((tmp_path / "run" / "trace" / "trace.json").read_text())
     assert trace["traceEvents"]
+    program = json.loads(
+        (tmp_path / "run" / "trace" / "program.json").read_text())
+    assert [s["name"] for s in program["spans"]] == ["toy"]
+    assert isinstance(program["counters"], dict)
