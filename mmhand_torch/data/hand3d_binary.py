@@ -1,5 +1,5 @@
 """hand3d packed-binary GAN database writer and reader (counterpart of
-mmhand_tpu/data/hand3d_binary.py; numpy only, the port's own copy).
+mmhand_tpu/data/hand3d_binary.py; numpy and the port's tracer).
 
 The record format of reference
 hand_pose_estimators/CVPR2020_hand3d/data/create_GAN_DB.py:58-120, which
@@ -24,6 +24,8 @@ import os
 import struct
 
 import numpy as np
+
+from mmhand_torch.utils import trace
 
 
 def add_padding(coords: np.ndarray, total: int = 42) -> np.ndarray:
@@ -78,7 +80,9 @@ class Hand3dBinaryDataset:
     """Sequential reader over a packed GAN DB file — the consumer-side
     equivalent of the hand3d TF queue readers (reference
     hand_pose_estimators/CVPR2020_hand3d/data/BinaryDbReader_gan.py role):
-    lets the in-framework HPE fine-tune directly from a .bin database."""
+    lets the in-framework HPE fine-tune directly from a .bin database.
+    Each read is the host span ``hand3d.read`` (``utils.trace``) and adds
+    one to the counter ``hand3d.records``."""
 
     def __init__(self, path: str, height: int = 256, width: int = 256):
         self.path = path
@@ -91,9 +95,12 @@ class Hand3dBinaryDataset:
         return self._len
 
     def __getitem__(self, index: int) -> dict:
-        with open(self.path, "rb") as fh:
-            fh.seek(index * self._rec)
-            return read_record(fh, self.height, self.width)
+        with trace.span("hand3d.read"):
+            with open(self.path, "rb") as fh:
+                fh.seek(index * self._rec)
+                record = read_record(fh, self.height, self.width)
+        trace.count("hand3d.records")
+        return record
 
 
 def write_gan_db(out_path: str, samples) -> int:

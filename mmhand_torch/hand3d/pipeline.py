@@ -44,6 +44,7 @@ from mmhand_torch.ops.hand_trafo import (
     canonical_trafo,
     flip_right_hand,
 )
+from mmhand_torch.utils import trace
 
 RECORD_KEYS = ("keypoint_xyz", "keypoint_uv", "cam_mat", "image",
                "hand_parts", "keypoint_vis")
@@ -110,8 +111,15 @@ def derive_batch(records: dict, cfg: PipelineConfig,
     records: keypoint_xyz (B, 42, 3), keypoint_uv (B, 42, 2), cam_mat
     (B, 3, 3), image (B, H, W, 3) uint8, hand_parts (B, H, W) integer,
     keypoint_vis (B, 42) bool; numpy arrays or tensors.  ``generator``
-    draws the noise that ``cfg`` turns on."""
+    draws the noise that ``cfg`` turns on.  The whole derivation is the
+    device span ``hand3d.derive`` (``utils.trace``)."""
     device = torch.device(device)
+    with trace.span("hand3d.derive", device):
+        return _derive(records, cfg, generator, device)
+
+
+def _derive(records: dict, cfg: PipelineConfig, generator: torch.Generator,
+            device: torch.device) -> dict:
     r = _as_tensors(records, device)
     b = r["image"].shape[0]
     h, w = cfg.image_size

@@ -41,6 +41,7 @@ from mmhand_torch.models.hand3d import (
 from mmhand_torch.ops.hand3d_image import resize_bilinear_tf1
 from mmhand_torch.parallel.sharding import all_reduce_grads, mean_metrics
 from mmhand_torch.train.state import load_adam_state_dict, rank_seed
+from mmhand_torch.utils import trace
 
 # the reference training_*.py train_para dicts
 TRAIN_PARA_HANDSEGNET = {
@@ -103,8 +104,9 @@ class Hand3DSystem:
         self.distributed = distributed
         self.rank, self.world = ((dist.get_rank(), dist.get_world_size())
                                  if distributed else (0, 1))
-        init_hand3d(module, torch.Generator().manual_seed(seed))
-        self.module = module.to(self.device)
+        with trace.timed("setup.init_weights_s"):
+            init_hand3d(module, torch.Generator().manual_seed(seed))
+            self.module = module.to(self.device)
         self.opt = make_adam(self.module, para)
         self.seed = seed
         self.dropout_gen = torch.Generator(self.device).manual_seed(
@@ -166,20 +168,33 @@ class Hand3DSystem:
 
 def make_hand3d_train_step(system: Hand3DSystem):
     """step(batch) -> the 0-d loss, averaged over the ranks; sets the
-    learning rate of ``system.step`` from ``staged_lr`` and advances it."""
+    learning rate of ``system.step`` from ``staged_lr`` and advances it.
+    Each call begins a step (``utils.trace``) and is the host span
+    ``step``; the forward and loss are the device span ``hand3d.forward``,
+    then ``backward``, ``allreduce`` over several ranks, and ``adam``."""
     values = system.train_para["lr"]
     steps = system.train_para["lr_iter"]
+    device = system.device
 
     def train_step(batch: dict) -> torch.Tensor:
+        trace.begin_step()
+        with trace.span("step"):
+            return _train_step(batch)
+
+    def _train_step(batch: dict) -> torch.Tensor:
         system.module.train()
         for group in system.opt.param_groups:
             group["lr"] = staged_lr(values, steps, system.step)
         system.opt.zero_grad(set_to_none=True)
-        loss = system.loss_fn(batch)
-        loss.backward()
+        with trace.span("hand3d.forward", device):
+            loss = system.loss_fn(batch)
+        with trace.span("backward", device):
+            loss.backward()
         if system.distributed:
-            all_reduce_grads(system.module)
-        system.opt.step()
+            with trace.span("allreduce", device):
+                all_reduce_grads(system.module)
+        with trace.span("adam", device):
+            system.opt.step()
         system.step += 1
         loss = loss.detach()
         if system.distributed:
