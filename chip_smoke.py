@@ -17,7 +17,11 @@
    timed at the main paths' BatchNorm sites by a CUDA graph of 50 calls
    (the GAN step's four shapes and K2 per step, the MSRA/V2V C=1, C=21 and
    largest 5-D sites, PoseResNet-50's 56 inputs), twice, beside its bound
-   and ``torch.batch_norm_stats`` timed the same way.
+   and ``torch.batch_norm_stats`` timed the same way.  The train-mode
+   normalize's two kernels (``bn_apply``) are held against their plain
+   version and timed the same way at the GAN step's sites and the MSRA/V2V
+   group's, beside the op sequence they replaced; every path's count of
+   their launches must equal K2's and K2b's.
 3. Holds the port on the card against the port on the CPU (the path the
    tests hold against mmhand_tpu) on small inputs, in float32 with TF32
    off: batch preparation and a toy generator; two toy train steps.
@@ -197,6 +201,8 @@ K1_KERNELS = ("gaussian_heatmaps_kernel",)
 K2_KERNELS = ("bn_sums_kernel",)
 K2B_KERNELS = ("bn_sums_backward_kernel",)
 K3_KERNELS = ("jointsmap_kernel",)
+BN_APPLY_KERNELS = ("bn_apply_kernel",)
+BN_APPLY_BWD_KERNELS = ("bn_apply_backward_kernel",)
 # the largest BatchNorm input of the train step (in bf16, and in f16 for the
 # fp16 slice), a PATBlock attention stream's, and a ragged shape in f32
 BN_SHAPES = [((16, 64, 256, 256), "bfloat16"), ((16, 64, 256, 256), "float16"),
@@ -876,6 +882,279 @@ def bn_site_phase(rounds: int = 2) -> dict:
     return result
 
 
+def bn_apply_bounds(x) -> tuple[float, float]:
+    """Least milliseconds of the normalize at ``x``, forward and backward:
+    x read and y written, or x and dy read and dx written, plus the
+    per-channel f32 vectors; 3 f32 operations an element forward (subtract,
+    multiply, add), 5 backward (subtract, two multiply-adds, a multiply)."""
+    n, e, c = x.numel(), x.element_size(), x.shape[1]
+    return (bound(2 * n * e + 4 * c * 4, 3 * n)[0],
+            bound(3 * n * e + 7 * c * 4, 5 * n)[0])
+
+
+def bn_apply_errors(x, dy, mean, mean_sq, weight, bias) -> dict:
+    """The normalize's kernels on ``x`` against the plain version on the
+    card.  ``rel``: the relative errors, of y and dx against the largest
+    |value| of the plain version's, and of the four per-channel gradients
+    against the sums of |terms| they come from, as K2's.  ``share``: each
+    error as a share of its tolerance (<= 1 passes): two roundings of the
+    working type for y and dx; 1e-5 of the sums of |terms| plus 8 f32
+    roundings of the value for the gradients."""
+    import torch
+
+    from mmhand_torch.ops.bn_stats import (
+        bn_apply_backward,
+        bn_apply_backward_ref,
+        bn_apply_forward,
+        bn_apply_ref,
+    )
+
+    eps = 1e-5
+    y = bn_apply_forward(x, mean, mean_sq, weight, bias, eps)
+    got = bn_apply_backward(dy, x, mean, mean_sq, weight, eps)
+    torch.cuda.synchronize()
+    unit = torch.finfo(x.dtype).eps
+    f32 = torch.finfo(torch.float32).eps
+    ch = (1, -1) + (1,) * (x.dim() - 2)
+    r = torch.rsqrt(torch.clamp(mean_sq - mean * mean, min=0.0) + eps)
+    scale = (r * weight).view(ch)
+    g, xm = dy.float(), x.float() - mean.view(ch)
+    y_ref = bn_apply_ref(x, mean, mean_sq, weight, bias, eps).float()
+    want = bn_apply_backward_ref(dy, x, mean, mean_sq, weight, eps)
+    y_err = (y.float() - y_ref).abs()
+    dx_err = (got[0].float() - want[0].float()).abs()
+    axes = (0,) + tuple(range(2, x.dim()))
+    abs_dy, abs_b = g.abs().sum(axes), (g * xm).abs().sum(axes)
+    d_var = 0.5 * weight.abs() * r ** 3
+    terms = ((r * weight).abs() * abs_dy + 2 * mean.abs() * d_var * abs_b,
+             d_var * abs_b, r * abs_b, abs_dy)
+    grad_errs = [(a - b).abs() for a, b in zip(got[1:], want[1:])]
+    rel = {"y": float(y_err.max() / y_ref.abs().max()),
+           "dx": float(dx_err.max() / want[0].float().abs().max()),
+           "gradients": max(float((e / (t + 1e-30)).max())
+                            for e, t in zip(grad_errs, terms))}
+    share = {"y": float((y_err / (2 * unit * ((xm * scale).abs()
+                                              + bias.view(ch).abs())
+                                  + 1e-30)).max()),
+             "dx": float((dx_err / (2 * unit * (g * scale).abs()
+                                    + 1e-30)).max()),
+             "gradients": max(float((e / (1e-5 * t + 8 * f32 * b.abs()
+                                          + 1e-30)).max())
+                              for e, t, b in zip(grad_errs, terms,
+                                                 want[1:]))}
+    return {"rel": rel, "share": share}
+
+
+def device_launches(fn) -> int:
+    """Device activities (kernels, copies, memsets) one call of ``fn`` puts
+    on the card, by torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pad_trace_start()
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA
+               and "spin_kernel" not in ev.key)
+
+
+def bn_apply_phase() -> list:
+    """bn_apply_kernel and bn_apply_backward_kernel (the train-mode
+    normalize) at the GAN step's four site shapes in bf16, the largest also
+    in f16 and f32, and the MSRA/V2V group's C=1, C=21 and largest 5-D
+    sites in f32: held against the plain version on the card
+    (``bn_apply_errors``), then timed by ``graph_ms`` over copies past the
+    L2 beside the profiler's device time, the bound, the plain version's
+    CUDA-event time, and torch's own BatchNorm kernels doing the same work
+    (``torch.batch_norm_elemt`` forward; ``batch_norm_backward_reduce``, a
+    multiply for dx and the per-channel ops backward), by graph and by CUDA
+    events with their launches; and the replaced op sequence (the f32
+    normalize and autograd's backward of it) against ``bn_apply`` forward
+    and backward, both by CUDA events; summed per GAN step over its 101
+    calls.  Returns the two kernels' records at the largest site."""
+    import torch
+
+    from mmhand_torch.ops.bn_stats import (
+        bn_apply,
+        bn_apply_backward,
+        bn_apply_backward_ref,
+        bn_apply_forward,
+        bn_apply_ref,
+        bn_sums_ref,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    eps = 1e-5
+
+    def case(shape, dtype, copies):
+        layout = (torch.channels_last if len(shape) == 4
+                  else torch.channels_last_3d)
+        xs, dys = [], []
+        for _ in range(copies):
+            xs.append((torch.randn(shape, generator=gen, device="cuda") * 1.5
+                       + 0.3).to(dtype).contiguous(memory_format=layout))
+            dys.append(torch.randn(shape, generator=gen, device="cuda").to(
+                dtype).contiguous(memory_format=layout))
+        n = xs[0].numel() // shape[1]
+        s1, s2 = bn_sums_ref(xs[0])
+        weight = 1 + 0.02 * torch.randn(shape[1], generator=gen, device="cuda")
+        bias = 0.1 * torch.randn(shape[1], generator=gen, device="cuda")
+        return xs, dys, (s1 / n, s2 / n, weight, bias)
+
+    def replaced(x, dy, stats):
+        """The op sequence bn_apply replaced, forward and backward."""
+        mean, mean_sq, weight, bias = (t.detach().requires_grad_()
+                                       for t in stats)
+        x = x.detach().requires_grad_()
+        ch = (1, -1) + (1,) * (x.dim() - 2)
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
+        scale = torch.rsqrt(var + eps) * weight
+        y = ((x.to(torch.float32) - mean.view(ch)) * scale.view(ch)
+             + bias.view(ch)).to(x.dtype)
+        y.backward(dy)
+
+    def through_bn_apply(x, dy, stats):
+        leaves = [t.detach().requires_grad_() for t in stats]
+        x = x.detach().requires_grad_()
+        bn_apply(x, *leaves, eps).backward(dy)
+
+    def library_forward(x, stats):
+        """torch's BatchNorm kernel for the normalize: y and invstd."""
+        mean, mean_sq, weight, bias = stats
+        invstd = torch.rsqrt(torch.clamp(mean_sq - mean * mean, min=0.0)
+                             + eps)
+        return torch.batch_norm_elemt(x, weight, bias, mean, invstd, eps)
+
+    def library_backward(x, dy, stats):
+        """torch's BatchNorm kernels for the backward: the per-channel
+        sums and d_weight, d_bias in one pass, dx = dy * scale in x's type,
+        d_mean and d_mean_sq from the sums."""
+        mean, mean_sq, weight, _ = stats
+        raw = mean_sq - mean * mean
+        invstd = torch.rsqrt(torch.clamp(raw, min=0.0) + eps)
+        sum_dy, sum_dy_xmu, d_weight, d_bias = (
+            torch.batch_norm_backward_reduce(dy, x, mean, invstd, weight,
+                                             True, True, True))
+        scale = invstd * weight
+        dx = torch.mul(dy, scale.view((1, -1) + (1,) * (x.dim() - 2)),
+                       out=torch.empty_like(x))
+        d_var = torch.where(raw >= 0, -0.5 * (sum_dy_xmu * weight)
+                            * invstd ** 3, 0.0)
+        return dx, -(scale * sum_dy) - 2.0 * mean * d_var, d_var, d_weight, \
+            d_bias
+
+    sites = [(f"GAN x{calls}", shape, torch.bfloat16, calls)
+             for shape, calls in GAN_BN_SITES]
+    sites += [("GAN largest, f16", GAN_BN_SITES[0][0], torch.float16, 0),
+              ("GAN largest, f32", GAN_BN_SITES[0][0], torch.float32, 0)]
+    sites += [("MSRA/V2V", shape, torch.float32, 0)
+              for shape in MSRA_BN_TIMED[:4:2] + MSRA_BN_TIMED[3:]]
+    step = {k: 0.0 for k in ("forward", "backward", "bound", "library",
+                             "eager", "library_eager", "replaced",
+                             "bn_apply")}
+    records = []
+    for what, shape, dtype, calls in sites:
+        nbytes = math.prod(shape) * torch.finfo(dtype).bits // 8
+        xs, dys, stats = case(shape, dtype,
+                              min(GRAPH_CALLS, math.ceil(L2_BYTES / nbytes) + 1))
+        x, dy = xs[0], dys[0]
+        errors = bn_apply_errors(x, dy, *stats)
+        check(max(errors["share"].values()) <= 1.0,
+              f"bn_apply at {shape} {dtype}: error shares {errors['share']}")
+        lib_y = library_forward(x, stats).float()
+        lib_dx = library_backward(x, dy, stats)[0].float()
+        y_ref = bn_apply_ref(x, *stats, eps).float()
+        dx_ref = bn_apply_backward_ref(dy, x, *stats[:3], eps)[0].float()
+        lib_rel = (float((lib_y - y_ref).abs().max() / y_ref.abs().max()),
+                   float((lib_dx - dx_ref).abs().max()
+                         / dx_ref.abs().max()))
+        del lib_y, lib_dx, y_ref, dx_ref
+        pick = [(xs[i % len(xs)], dys[i % len(xs)])
+                for i in range(GRAPH_CALLS)]
+        fwd = [functools.partial(bn_apply_forward, a, *stats, eps)
+               for a, _ in pick]
+        bwd = [functools.partial(bn_apply_backward, b, a, *stats[:3], eps)
+               for a, b in pick]
+        lib_fwd = [functools.partial(library_forward, a, stats)
+                   for a, _ in pick]
+        lib_bwd = [functools.partial(library_backward, a, b, stats)
+                   for a, b in pick]
+        fwd_ms, bwd_ms = graph_ms(fwd), graph_ms(bwd)
+        lib_ms = (graph_ms(lib_fwd), graph_ms(lib_bwd))
+        fwd_dev = kernel_device_ms(fwd[0], BN_APPLY_KERNELS)
+        bwd_dev = kernel_device_ms(bwd[0], BN_APPLY_BWD_KERNELS)
+        fwd_bound, bwd_bound = bn_apply_bounds(x)
+        plain = cuda_ms(lambda: bn_apply_ref(x, *stats, eps), iters=5)
+        plain_bwd = cuda_ms(lambda: bn_apply_backward_ref(
+            dy, x, *stats[:3], eps), iters=5)
+        eager = cuda_ms(lambda: (bn_apply_forward(x, *stats, eps),
+                                 bn_apply_backward(dy, x, *stats[:3], eps)),
+                        iters=5)
+        lib_eager = cuda_ms(lambda: (library_forward(x, stats),
+                                     library_backward(x, dy, stats)), iters=5)
+        ours_n = device_launches(lambda: (
+            bn_apply_forward(x, *stats, eps),
+            bn_apply_backward(dy, x, *stats[:3], eps)))
+        lib_n = device_launches(lambda: (library_forward(x, stats),
+                                         library_backward(x, dy, stats)))
+        old = cuda_ms(lambda: replaced(x, dy, stats), iters=5)
+        new = cuda_ms(lambda: through_bn_apply(x, dy, stats), iters=5)
+        for k, v in (("forward", fwd_ms), ("backward", bwd_ms),
+                     ("bound", fwd_bound + bwd_bound), ("library", sum(lib_ms)),
+                     ("eager", eager), ("library_eager", lib_eager),
+                     ("replaced", old), ("bn_apply", new)):
+            step[k] += calls * v
+        rel, share = errors["rel"], errors["share"]
+        print(f"bn_apply {what} {shape} {str(dtype).removeprefix('torch.')} "
+              f"({nbytes / 1e6:.1f} MB, {len(xs)} copies): rel err y "
+              f"{rel['y']:.3g}, dx {rel['dx']:.3g}, gradients "
+              f"{rel['gradients']:.3g} (shares of the tolerance "
+              f"{share['y']:.3g}, {share['dx']:.3g}, "
+              f"{share['gradients']:.3g}); forward {fwd_ms:.4f} ms (graph; "
+              f"profiler {fwd_dev:.4f}), bound {fwd_bound:.4f} ms "
+              f"({100 * fwd_bound / fwd_ms:.1f}%), plain {plain:.4f} ms; "
+              f"backward {bwd_ms:.4f} ms (graph; profiler {bwd_dev:.4f}), "
+              f"bound {bwd_bound:.4f} ms ({100 * bwd_bound / bwd_ms:.1f}%), "
+              f"plain {plain_bwd:.4f} ms; forward and backward: kernels "
+              f"{fwd_ms + bwd_ms:.4f} ms (graph), {eager:.4f} ms eager, "
+              f"{ours_n} launches; torch's BatchNorm kernels {lib_ms[0]:.4f} + "
+              f"{lib_ms[1]:.4f} ms (graph), {lib_eager:.4f} ms eager, {lib_n} launches, rel err "
+              f"y {lib_rel[0]:.3g}, dx {lib_rel[1]:.3g}; by autograd: "
+              f"replaced op sequence {old:.4f} ms, bn_apply {new:.4f} ms "
+              f"(CUDA events)")
+        if not records:
+            records = [
+                {"name": "bn_apply", "route": "cuda", "source": BN_SOURCE,
+                 "replaces": None, "max_abs_err": None,
+                 "max_rel_err": rel["y"], "ms": fwd_ms, "plain_ms": plain,
+                 "bound_ms": fwd_bound, "bound_by": "bytes",
+                 "library_ms": lib_ms[0], "device_ms": fwd_dev,
+                 "skipped_share": None},
+                {"name": "bn_apply_backward", "route": "cuda",
+                 "source": BN_SOURCE, "replaces": None, "max_abs_err": None,
+                 "max_rel_err": max(rel["dx"], rel["gradients"]),
+                 "ms": bwd_ms, "plain_ms": plain_bwd, "bound_ms": bwd_bound,
+                 "bound_by": "bytes", "library_ms": lib_ms[1],
+                 "device_ms": bwd_dev, "skipped_share": None}]
+        del xs, dys, x, dy, pick, fwd, bwd, lib_fwd, lib_bwd
+    print(f"bn_apply per GAN step ({BN_PER_STEP} calls over the four sites): "
+          f"forward {step['forward']:.4f} ms, backward {step['backward']:.4f} "
+          f"ms (graph), bound {step['bound']:.4f} ms "
+          f"({100 * step['bound'] / (step['forward'] + step['backward']):.1f}%)"
+          f"; torch's BatchNorm kernels {step['library']:.4f} ms (graph); "
+          f"eager with launches: kernels {step['eager']:.4f} ms, torch's "
+          f"{step['library_eager']:.4f} ms; forward and backward by autograd "
+          f"(CUDA events): replaced op sequence {step['replaced']:.4f} ms, "
+          f"bn_apply {step['bn_apply']:.4f} ms")
+    reset_launches()  # the kernels ran here without K2 beside them
+    return records
+
+
 def raw_batch(cfg, n):
     from mmhand_torch.data import HostLoader, build_dataset
 
@@ -1317,7 +1596,8 @@ def train_slice_phase(tmp: Path) -> tuple[dict, float]:
     }
     report, sums = profile_step(
         lambda: step(batch, lr), "train step",
-        {"K2": K2_KERNELS, "K2b": K2B_KERNELS})
+        {"K2": K2_KERNELS, "K2b": K2B_KERNELS, "bn_apply": BN_APPLY_KERNELS,
+         "bn_apply_backward": BN_APPLY_BWD_KERNELS})
     print(report)
     print(bn_step_bounds(step, batch, lr, sums))
     rate = result.images_per_sec
@@ -1340,11 +1620,19 @@ def train_slice_phase(tmp: Path) -> tuple[dict, float]:
 
 
 def kernel_launches() -> dict:
-    """The launches of the port's four kernels since the counters of
+    """The launches of the port's kernels since the counters of
     ``utils.trace`` were last reset, by their wrappers' names."""
     from mmhand_torch.scripts import train
 
     return train.kernel_launches(tuple(train.LAUNCH_COUNTERS))
+
+
+def bn_launches(forward: int, backward: int) -> dict:
+    """The launches of K2 and K2b, and of the normalize's two kernels beside
+    them, where ``forward`` train-mode BatchNorm calls ran and ``backward``
+    of them took a gradient."""
+    return {"bn_sums": forward, "bn_sums_backward": backward,
+            "bn_apply": forward, "bn_apply_backward": backward}
 
 
 def reset_launches() -> None:
@@ -1893,8 +2181,9 @@ def longrun_phase(tmp: Path) -> dict:
     check(math.isfinite(out["ssim_train_pairs"]), f"SSIM {out}")
     # K1 renders P1 and P2: two launches per step and per SSIM batch
     check(leg2 is not None and leg2["gaussian_heatmaps"] == 2 * steps2
-          and leg2["bn_sums"] == leg2["bn_sums_backward"]
-          == BN_PER_STEP * steps2, f"leg 2's launches {leg2}")
+          and {k: leg2.get(k) for k in bn_launches(0, 0)}
+          == bn_launches(BN_PER_STEP * steps2, BN_PER_STEP * steps2),
+          f"leg 2's launches {leg2}")
     check(ssim_launches["gaussian_heatmaps"]
           == 2 * -(-LONGRUN["items"] // TRAIN["batch"]),
           f"the SSIM pass's launches {ssim_launches}")
@@ -2367,8 +2656,8 @@ def hpe_train_phase(tmp: Path) -> tuple[dict, Path]:
     check(cfg.precision.compute_dtype == "bfloat16" and system.variant == "hpm"
           and cfg.data.augmentation_ratio == 1.0, "HPE config")
     check(result.steps == steps, f"HPE: {result.steps} steps")
-    check(launches == {"gaussian_heatmaps": steps, "bn_sums": 0,
-                       "bn_sums_backward": 0, "generate_jointsmap": 0},
+    check(launches == {"gaussian_heatmaps": steps, **bn_launches(0, 0),
+                       "generate_jointsmap": 0},
           f"HPE launches {launches}")
     lines = re.findall(r"\(epoch: \d+, iters: (\d+), time: [^)]*\) (.*)", out)
     check(len(lines) == steps, f"{len(lines)} HPE loss lines")
@@ -2679,7 +2968,7 @@ def export_phase(tmp: Path, crops: Path) -> dict:
         ["pix2pixhd", str(crops), str(labels_dir), "--size", str(size),
          "--device", "cuda", "--batch", str(batch)])
     check(got == n and p2p_launches == {
-        "gaussian_heatmaps": 0, "bn_sums": 0, "bn_sums_backward": 0,
+        "gaussian_heatmaps": 0, **bn_launches(0, 0),
         "generate_jointsmap": -(-n // batch)},
         f"pix2pixhd: {got} labels, launches {p2p_launches}")
     print(f"export pix2pixhd: {n} labels and images in {seconds:.3f} s, "
@@ -2746,8 +3035,8 @@ def csv_train_phase(tmp: Path) -> dict:
           and cfg.data.dataset == "MMHand", "CSV train config")
     check(result.steps == steps, f"CSV train: {result.steps} steps")
     check(launches == {"gaussian_heatmaps": 0,
-                       "bn_sums": BN_PER_STEP * steps,
-                       "bn_sums_backward": BN_PER_STEP * steps,
+                       **bn_launches(BN_PER_STEP * steps,
+                                     BN_PER_STEP * steps),
                        "generate_jointsmap": 0},
           f"CSV train launches {launches}")
     lines = re.findall(r"\(epoch: \d+, iters: (\d+), time: [^)]*\) (.*)", out)
@@ -2815,8 +3104,8 @@ def patn2_phase(test_crops: Path) -> dict:
     print(out.splitlines()[-1])
     _check_scores("bench_baselines patn2", scores, n)
     batches = -(-n // batch)
-    check(launches == {"gaussian_heatmaps": 2 * batches, "bn_sums": 0,
-                       "bn_sums_backward": 0, "generate_jointsmap": 0},
+    check(launches == {"gaussian_heatmaps": 2 * batches, **bn_launches(0, 0),
+                       "generate_jointsmap": 0},
           f"PATN2 launches {launches}")
 
     cfg = Config(model=ModelConfig(fine_size=size),
@@ -2883,8 +3172,8 @@ def pose_resnet_phase() -> dict:
     train_pass()
     torch.cuda.synchronize()
     launches = kernel_launches()
-    check(launches == {"gaussian_heatmaps": 0, "bn_sums": sites,
-                       "bn_sums_backward": sites, "generate_jointsmap": 0},
+    check(launches == {"gaussian_heatmaps": 0, **bn_launches(sites, sites),
+                       "generate_jointsmap": 0},
           f"PoseResNet train launches {launches}")
     check(all(p.grad is not None and bool(torch.isfinite(p.grad).all())
               for p in net.parameters()), "PoseResNet gradients")
@@ -3621,8 +3910,8 @@ def msra_v2v_phase(tmp: Path) -> dict:
             h.remove()
         n_bn = MSRA_BN_SITES[name]
         check(math.isfinite(loss_value), f"{name}: loss {loss_value}")
-        check(launches == {"gaussian_heatmaps": 0, "bn_sums": n_bn,
-                           "bn_sums_backward": n_bn, "generate_jointsmap": 0}
+        check(launches == {"gaussian_heatmaps": 0, **bn_launches(n_bn, n_bn),
+                           "generate_jointsmap": 0}
               and len(bn_inputs) == n_bn,
               f"{name}: launches {launches}, {len(bn_inputs)} inputs")
         still = [k for k, v in net.state_dict().items()
@@ -3754,6 +4043,7 @@ def main() -> int:
     k1 = timed(kernel_phase)
     k2, k2b = timed(bn_kernel_phase)
     timed(bn_site_phase)
+    bn_apply_rec, bn_apply_bwd_rec = timed(bn_apply_phase)
     k3 = timed(jointsmap_kernel_phase)
     timed(small_reference_phase)
     timed(small_train_phase)
@@ -3791,6 +4081,14 @@ def main() -> int:
                       (k2b, "bn_sums_backward"), (k3, "generate_jointsmap")):
         rec["launches"] = sum(p.get(name, 0) for p in paths.values())
         check(rec["launches"] > 0, f"{name} was launched on no path")
+    # the normalize's kernels run once beside each K2 and K2b launch
+    for rec, name in ((bn_apply_rec, "bn_apply"),
+                      (bn_apply_bwd_rec, "bn_apply_backward")):
+        rec["launches"] = sum(p.get(name, 0) for p in paths.values())
+    check(all(p.get("bn_apply", 0) == p.get("bn_sums", 0)
+              and p.get("bn_apply_backward", 0)
+              == p.get("bn_sums_backward", 0) for p in paths.values()),
+          "the normalize's launches differ from K2's or K2b's on a path")
     check(all(paths[p]["bn_sums"] > 0 and paths[p]["bn_sums_backward"] > 0
               for p in paths if p not in ("generation", "evaluation",
                                           "HPE train", "HPE test",
@@ -3810,7 +4108,8 @@ def main() -> int:
              "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "device_ms", "skipped_share"]
     print(json.dumps({"kernels": [{k: rec[k] for k in order}
-                                  for rec in (k1, k2, k2b, k3)]}))
+                                  for rec in (k1, k2, k2b, bn_apply_rec,
+                                              bn_apply_bwd_rec, k3)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

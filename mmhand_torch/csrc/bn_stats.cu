@@ -479,6 +479,311 @@ bool plan_fits(const SumsPlan& p, const void* x, int elem_bytes) {
           aligned16(static_cast<const char*>(x) + p.head * elem_bytes));
 }
 
+
+// ---------------------------------------------------------------------------
+// The train-mode normalize that follows the moments: bn_apply_kernel and
+// bn_apply_backward_kernel (ops/bn_stats.py `bn_apply`).
+//
+// They replace no TPU kernel: mmhand_tpu's normalize
+// (mmhand_tpu/models/layers.py:190-192, `_DotStatsBN`) is jnp arithmetic
+// that XLA fuses into one pass each way.  In eager PyTorch the same formula
+// is some 40 launches a site, forward and backward, with full-size f32
+// temporaries (x - mean, the broadcasts, the casts) and autograd's
+// reductions over them: about 94 bytes moved per element of a bf16 input.
+//
+// What bounds them: HBM bytes.  The forward reads x and writes y (4 bytes
+// an element in bf16); the backward reads x and dy and writes dx (6
+// bytes).  So each is one pass, with the per-channel work done once per
+// thread and not per element:
+//
+//   forward   y = ((x - mean) * scale) + bias, scale = rsqrt(max(E[x^2] -
+//             E[x]^2, 0) + eps) * weight, in f32, each operation rounded
+//             alone in the plain version's order (no FMA), stored in x's
+//             type;
+//   backward  dx = dy * scale in x's type, and the f32 per-channel sums
+//             sum dy and sum dy (x - mean), from which the last block
+//             finishes d_mean, d_mean_sq, d_weight and d_bias.
+//
+// Both walk K2's plan with no head (the wrapper passes 16-byte aligned
+// tensors): thread (tile, lane) holds vector v = tile * lanes + lane of
+// each super-row of its chunk, so the channels of its slots, (v * vec + j)
+// mod C, and their mean, scale and bias stay in registers for the whole
+// launch, and every load and store of the body is 16 bytes wide at every
+// C.  The tail (fewer than W elements) goes element by element: in the
+// forward by block (0, 0), in the backward by the threads that finish each
+// channel.  The backward reduces as K2 does: shuffles and a fixed tree to
+// one partial per block; K2's tickets (the same per-stream array) pick
+// each tile's last block, which sums the partials in chunk order into the
+// tile's slots; a second ticket picks the last tile, which folds the slots
+// into channels.  No float atomics: the gradients are the same bits on
+// every run.
+
+// max(E[x^2] - E[x]^2, 0) as torch.clamp takes it (a NaN stays NaN), before
+// the clamp (`raw`) and after.
+__device__ __forceinline__ float raw_var(float m, float q) {
+  return __fsub_rn(q, __fmul_rn(m, m));
+}
+__device__ __forceinline__ float inv_std(float raw, float eps) {
+  return rsqrtf(__fadd_rn(raw < 0.0f ? 0.0f : raw, eps));
+}
+
+// scale = rsqrt(var + eps) * weight of channel ch
+__device__ __forceinline__ float bn_scale(const float* mean,
+                                          const float* mean_sq,
+                                          const float* weight, float eps,
+                                          int64_t ch) {
+  return __fmul_rn(inv_std(raw_var(__ldg(mean + ch), __ldg(mean_sq + ch)),
+                           eps),
+                   __ldg(weight + ch));
+}
+
+// ((x - m) * s) + b, each operation rounded alone
+__device__ __forceinline__ float normalize(float x, float m, float s,
+                                           float b) {
+  return __fadd_rn(__fmul_rn(__fsub_rn(x, m), s), b);
+}
+
+// The super-rows of the block's chunk: [begin, end).
+__device__ __forceinline__ int64_t chunk_end(const SumsPlan& p,
+                                             int64_t begin) {
+  return begin + p.rows_per_chunk < p.super_rows ? begin + p.rows_per_chunk
+                                                 : p.super_rows;
+}
+
+// y[e] = ((x[e] - mean) * scale) + bias, e's channel e mod C.
+template <typename T>
+__global__ void __launch_bounds__(kSumThreads, 1)
+bn_apply_kernel(const T* __restrict__ x, const float* __restrict__ mean,
+                const float* __restrict__ mean_sq,
+                const float* __restrict__ weight,
+                const float* __restrict__ bias, float eps, T* __restrict__ y,
+                const SumsPlan p) {
+  constexpr int kVec = kVecBytes / sizeof(T);
+  const int lanes = static_cast<int>(p.lanes);
+  const int rows_per_iter = kSumThreads / lanes;
+  const int64_t v = int64_t(blockIdx.y) * lanes + threadIdx.x % lanes;
+  if (v < p.vectors) {
+    float m[kVec], s[kVec], b[kVec];
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      const int64_t ch = (v * kVec + j) % p.c;
+      m[j] = __ldg(mean + ch);
+      s[j] = bn_scale(mean, mean_sq, weight, eps, ch);
+      b[j] = __ldg(bias + ch);
+    }
+    const int64_t begin = int64_t(blockIdx.x) * p.rows_per_chunk;
+    const int64_t end = chunk_end(p, begin);
+    for (int64_t r = begin + threadIdx.x / lanes; r < end;
+         r += rows_per_iter) {
+      const int64_t at = r * p.vectors + v;
+      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(x) + at);
+      const T* in = reinterpret_cast<const T*>(&raw);
+      uint4 packed;
+      T* out = reinterpret_cast<T*>(&packed);
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        out[j] = from_f32<T>(normalize(to_f32(in[j]), m[j], s[j], b[j]));
+      }
+      reinterpret_cast<uint4*>(y)[at] = packed;
+    }
+  }
+  if (blockIdx.x == 0 && blockIdx.y == 0) {
+    for (int64_t e = p.super_rows * p.width + threadIdx.x; e < p.n_elems;
+         e += kSumThreads) {
+      const int64_t ch = e % p.c;
+      y[e] = from_f32<T>(normalize(to_f32(x[e]), mean[ch],
+                                   bn_scale(mean, mean_sq, weight, eps, ch),
+                                   bias[ch]));
+    }
+  }
+}
+
+// dx[e] = dy[e] * scale; per channel, a = sum dy and b = sum dy (x - mean),
+// and from them grads (4, C): d_mean, d_mean_sq, d_weight, d_bias.
+// Scratch and tickets as K2's.
+template <typename T>
+__global__ void __launch_bounds__(kSumThreads, 1)
+bn_apply_backward_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                         const float* __restrict__ mean,
+                         const float* __restrict__ mean_sq,
+                         const float* __restrict__ weight, float eps,
+                         T* __restrict__ dx, const SumsPlan p,
+                         float* __restrict__ scratch,
+                         float* __restrict__ grads,
+                         unsigned int* __restrict__ tickets) {
+  constexpr int kVec = kVecBytes / sizeof(T);
+  __shared__ __align__(16) float red[kSumWarps * 2 * kSumLanes * kVec];
+  const int lanes = static_cast<int>(p.lanes);
+  const int lane = threadIdx.x % lanes;
+  const int rows_per_iter = kSumThreads / lanes;
+  const int tw = lanes * kVec;
+  const int quads = 2 * tw / 4;  // float4 columns of a partial
+  const int warp = threadIdx.x / 32;
+  const int wlane = threadIdx.x % 32;
+  const int64_t tile = blockIdx.y;
+  const int64_t v = tile * lanes + lane;
+
+  float s1[kVec], s2[kVec];
+#pragma unroll
+  for (int j = 0; j < kVec; ++j) {
+    s1[j] = 0.0f;
+    s2[j] = 0.0f;
+  }
+  if (v < p.vectors) {
+    float m[kVec], s[kVec];
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      const int64_t ch = (v * kVec + j) % p.c;
+      m[j] = __ldg(mean + ch);
+      s[j] = bn_scale(mean, mean_sq, weight, eps, ch);
+    }
+    const int64_t begin = int64_t(blockIdx.x) * p.rows_per_chunk;
+    const int64_t end = chunk_end(p, begin);
+    for (int64_t r = begin + threadIdx.x / lanes; r < end;
+         r += rows_per_iter) {
+      const int64_t at = r * p.vectors + v;
+      const uint4 xr = __ldg(reinterpret_cast<const uint4*>(x) + at);
+      const uint4 gr = __ldg(reinterpret_cast<const uint4*>(dy) + at);
+      const T* xv = reinterpret_cast<const T*>(&xr);
+      const T* gv = reinterpret_cast<const T*>(&gr);
+      uint4 packed;
+      T* out = reinterpret_cast<T*>(&packed);
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        const float g = to_f32(gv[j]);
+        s1[j] += g;
+        s2[j] = fmaf(g, __fsub_rn(to_f32(xv[j]), m[j]), s2[j]);
+        out[j] = from_f32<T>(__fmul_rn(g, s[j]));
+      }
+      reinterpret_cast<uint4*>(dx)[at] = packed;
+    }
+  }
+
+  // the block's rows -> one partial, by K2's tree: shuffles down at offsets
+  // >= lanes, then warp q's lane i sums float4 column q of the warps' sums
+  for (int off = 16; off >= lanes; off /= 2) {
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      s1[j] += __shfl_down_sync(0xffffffffu, s1[j], off);
+      s2[j] += __shfl_down_sync(0xffffffffu, s2[j], off);
+    }
+  }
+  if (wlane < lanes) {
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      red[warp * 2 * tw + lane * kVec + j] = s1[j];
+      red[warp * 2 * tw + tw + lane * kVec + j] = s2[j];
+    }
+  }
+  __syncthreads();
+  const int64_t row = p.tiles * 2 * tw;  // floats of one chunk's partials
+  float* part = scratch + tile * 2 * tw;
+  for (int q = warp; q < quads; q += kSumWarps) {
+    const float4 sum = warp_sum(
+        wlane < kSumWarps
+            ? reinterpret_cast<const float4*>(red + wlane * 2 * tw)[q]
+            : make_float4(0.0f, 0.0f, 0.0f, 0.0f));
+    if (wlane == 0) {
+      reinterpret_cast<float4*>(part + blockIdx.x * row)[q] = sum;
+    }
+  }
+
+  // the tile's last block: lane i of warp q sums column q of chunks i,
+  // i + 32, ... in order, then the lanes by the tree, into the tile's
+  // slots ([tiles][2][tw] after the partials)
+  if (!last_to_arrive(&tickets[tile], p.chunks)) return;
+  float* slots = scratch + p.chunks * row;
+  for (int q = warp; q < quads; q += kSumWarps) {
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int64_t from = wlane; from < p.chunks; from += 32) {
+      add4(acc, __ldcg(reinterpret_cast<const float4*>(part + from * row) + q));
+    }
+    const float4 sum = warp_sum(acc);
+    if (wlane == 0) reinterpret_cast<float4*>(slots + tile * 2 * tw)[q] = sum;
+  }
+
+  // the last tile: channel ch sums its slots ch + m C, m < k, in m order,
+  // then its tail elements, writing their dx; then, with r = rsqrt(var +
+  // eps): d_bias = a; d_weight = b r; d_var = -0.5 (b weight) r^3 where the
+  // clamp passes (E[x^2] - E[x]^2 >= 0), else 0; d_mean_sq = d_var; d_mean
+  // = -(scale a) - 2 mean d_var
+  if (!last_to_arrive(&tickets[p.tiles], p.tiles)) return;
+  const int64_t k = p.width / p.c;
+  const int64_t tail = p.super_rows * p.width;
+  for (int64_t ch = threadIdx.x; ch < p.c; ch += kSumThreads) {
+    float a = 0.0f, b = 0.0f;
+    for (int64_t i = 0; i < k; ++i) {
+      // slot s of tile s / tw (tw a power of two)
+      const int64_t s = ch + i * p.c;
+      const float* at = slots + (s & ~int64_t(tw - 1)) * 2 + (s & (tw - 1));
+      a += __ldcg(at);
+      b += __ldcg(at + tw);
+    }
+    const float mu = mean[ch];
+    const float w = weight[ch];
+    const float raw = raw_var(mu, mean_sq[ch]);
+    const float r = inv_std(raw, eps);
+    const float scale = __fmul_rn(r, w);
+    for (int64_t e = tail + ((ch - tail) % p.c + p.c) % p.c; e < p.n_elems;
+         e += p.c) {
+      const float g = to_f32(dy[e]);
+      a += g;
+      b = fmaf(g, __fsub_rn(to_f32(x[e]), mu), b);
+      dx[e] = from_f32<T>(__fmul_rn(g, scale));
+    }
+    const float d_var = raw >= 0.0f
+        ? __fmul_rn(__fmul_rn(-0.5f, __fmul_rn(b, w)),
+                    __fmul_rn(__fmul_rn(r, r), r))
+        : 0.0f;
+    grads[ch] = __fsub_rn(-__fmul_rn(scale, a),
+                          __fmul_rn(__fmul_rn(2.0f, mu), d_var));
+    grads[p.c + ch] = d_var;
+    grads[2 * p.c + ch] = __fmul_rn(b, r);
+    grads[3 * p.c + ch] = a;
+  }
+}
+
+// What the normalize's kernels assume: K2's plan with no head, and every
+// tensor 16-byte aligned.
+bool apply_fits(const SumsPlan& p, int elem_bytes, const void* x,
+                const void* y, const void* z = nullptr) {
+  return p.head == 0 && plan_fits(p, x, elem_bytes) && aligned16(x) &&
+         aligned16(y) && aligned16(z);
+}
+
+SumsPlan read_plan(const int64_t* plan) {
+  SumsPlan p;
+  static_assert(kPlanFields == 10, "SumsPlan has 10 fields");
+  std::memcpy(&p, plan, sizeof(p));
+  return p;
+}
+
+template <typename T>
+int launch_apply(const void* x, const float* mean, const float* mean_sq,
+                 const float* weight, const float* bias, float eps, void* y,
+                 const SumsPlan& p, cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned int>(p.chunks),
+                  static_cast<unsigned int>(p.tiles));
+  bn_apply_kernel<T><<<grid, kSumThreads, 0, stream>>>(
+      static_cast<const T*>(x), mean, mean_sq, weight, bias, eps,
+      static_cast<T*>(y), p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_apply_backward(const void* x, const void* dy, const float* mean,
+                          const float* mean_sq, const float* weight, float eps,
+                          void* dx, const SumsPlan& p, float* scratch,
+                          float* grads, unsigned int* tickets,
+                          cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned int>(p.chunks),
+                  static_cast<unsigned int>(p.tiles));
+  bn_apply_backward_kernel<T><<<grid, kSumThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), mean, mean_sq,
+      weight, eps, static_cast<T*>(dx), p, scratch, grads, tickets);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x: (n, c) row-major on the device, of dtype 0 f32, 1 bf16, 2 f16; plan:
@@ -490,9 +795,7 @@ bool plan_fits(const SumsPlan& p, const void* x, int elem_bytes) {
 extern "C" int mmhand_bn_sums(const void* x, int dtype, const int64_t* plan,
                               float* scratch, float* out, void* tickets,
                               void* stream) {
-  SumsPlan p;
-  static_assert(kPlanFields == 10, "SumsPlan has 10 fields");
-  std::memcpy(&p, plan, sizeof(p));
+  const SumsPlan p = read_plan(plan);
   const int elem_bytes = dtype == kF32 ? 4 : 2;
   if ((dtype != kF32 && dtype != kBF16 && dtype != kF16) ||
       !plan_fits(p, x, elem_bytes) || tickets == nullptr) {
@@ -519,5 +822,65 @@ extern "C" int mmhand_bn_sums_backward(const void* x, int dtype,
     case kBF16: return launch_backward<__nv_bfloat16>(x, g1, g2, dx, n, c, s);
     case kF16: return launch_backward<__half>(x, g1, g2, dx, n, c, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+
+// x, y: (n, c) row-major of one dtype (0 f32, 1 bf16, 2 f16), 16-byte
+// aligned; mean, mean_sq, weight, bias: (c,) f32; plan: a host array of the
+// int64 fields of ops/bn_stats.py `SumsPlan`, with no head.  Launches on
+// `stream` and returns cudaGetLastError(); it does not synchronise.
+extern "C" int mmhand_bn_apply(const void* x, int dtype, const float* mean,
+                               const float* mean_sq, const float* weight,
+                               const float* bias, float eps, void* y,
+                               const int64_t* plan, void* stream) {
+  const SumsPlan p = read_plan(plan);
+  const int elem_bytes = dtype == kF32 ? 4 : 2;
+  if ((dtype != kF32 && dtype != kBF16 && dtype != kF16) ||
+      !apply_fits(p, elem_bytes, x, y)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kF32:
+      return launch_apply<float>(x, mean, mean_sq, weight, bias, eps, y, p, s);
+    case kBF16:
+      return launch_apply<__nv_bfloat16>(x, mean, mean_sq, weight, bias, eps,
+                                         y, p, s);
+    default:
+      return launch_apply<__half>(x, mean, mean_sq, weight, bias, eps, y, p, s);
+  }
+}
+
+// x, dy, dx: (n, c) row-major of one dtype, 16-byte aligned; mean, mean_sq,
+// weight: (c,) f32; plan as mmhand_bn_apply's; scratch: its
+// `scratch_floats` f32; grads: (4, c) f32, out; tickets: K2's kMaxTickets
+// int32 of this stream, zero.  Launches on `stream` and returns
+// cudaGetLastError(); it does not synchronise.
+extern "C" int mmhand_bn_apply_backward(const void* x, const void* dy,
+                                        int dtype, const float* mean,
+                                        const float* mean_sq,
+                                        const float* weight, float eps,
+                                        void* dx, float* scratch,
+                                        float* grads, void* tickets,
+                                        const int64_t* plan, void* stream) {
+  const SumsPlan p = read_plan(plan);
+  const int elem_bytes = dtype == kF32 ? 4 : 2;
+  if ((dtype != kF32 && dtype != kBF16 && dtype != kF16) ||
+      !apply_fits(p, elem_bytes, x, dy, dx) || tickets == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned int* t = static_cast<unsigned int*>(tickets);
+  switch (dtype) {
+    case kF32:
+      return launch_apply_backward<float>(x, dy, mean, mean_sq, weight, eps,
+                                          dx, p, scratch, grads, t, s);
+    case kBF16:
+      return launch_apply_backward<__nv_bfloat16>(
+          x, dy, mean, mean_sq, weight, eps, dx, p, scratch, grads, t, s);
+    default:
+      return launch_apply_backward<__half>(x, dy, mean, mean_sq, weight, eps,
+                                           dx, p, scratch, grads, t, s);
   }
 }

@@ -24,7 +24,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from mmhand_torch.ops.bn_stats import bn_moments
+from mmhand_torch.ops.bn_stats import bn_apply, bn_moments
 from mmhand_torch.parallel.sharding import all_reduce_sum
 
 
@@ -52,7 +52,8 @@ class _FlaxBatchNorm:
     Train mode normalizes with the f32 batch moments of ``ops.bn_moments``
     (kernel K2 on a CUDA device; float64 for a float64 net on the CPU), var = max(0, E[x^2] - E[x]^2) as flax's
     fast variance and mmhand_tpu's ``_DotStatsBN`` (mmhand_tpu/models/
-    layers.py:177-193), and folds the *biased* batch variance into
+    layers.py:177-193), through ``ops.bn_apply`` (one kernel each way on a
+    CUDA device), and folds the *biased* batch variance into
     ``running_var``; torch's own BatchNorm folds the unbiased one.  While
     ``update_running_stats`` is False (``frozen_running_stats``), train mode
     leaves the running statistics as they are.  Eval mode is torch's
@@ -77,16 +78,13 @@ class _FlaxBatchNorm:
             stats = (all_reduce_sum(torch.stack([mean, mean_sq]))
                      / dist.get_world_size())
             mean, mean_sq = stats.unbind()
-        var = torch.clamp(mean_sq - mean * mean, min=0.0)
         if self.update_running_stats:
             with torch.no_grad():
+                var = torch.clamp(mean_sq - mean * mean, min=0.0)
                 self.running_mean.lerp_(mean, self.momentum)
                 self.running_var.lerp_(var, self.momentum)
                 self.num_batches_tracked += 1
-        shape = (-1,) + (1,) * (x.dim() - 2)
-        scale = torch.rsqrt(var + self.eps) * self.weight
-        y = (x.to(mean.dtype) - mean.view(shape)) * scale.view(shape)
-        return (y + self.bias.view(shape)).to(x.dtype)
+        return bn_apply(x, mean, mean_sq, self.weight, self.bias, self.eps)
 
 
 class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):

@@ -1,4 +1,5 @@
-"""Per-channel BatchNorm moments (counterpart of mmhand_tpu/ops/bn_stats.py).
+"""Train-mode BatchNorm on the card: the per-channel moments (counterpart
+of mmhand_tpu/ops/bn_stats.py) and the normalize that follows them.
 
 ``bn_moments(x)`` gives the f32 (mean, mean of squares) per channel of an
 NCHW or NCDHW activation, the statistics every train-mode ``BatchNorm2d``
@@ -7,20 +8,31 @@ computes the f32 (sum, sum of squares) and ``bn_sums_backward`` its
 analytic gradient ``dx = g1 + 2 g2 x`` (mmhand_tpu/ops/bn_stats.py:73-77),
 joined by an ``autograd.Function``.
 
-Both wrappers dispatch on where ``x`` lies: a CPU tensor goes to the plain
-version beside them, a CUDA tensor to the hand-written kernels K2 and K2b in
-``csrc/bn_stats.cu``, built at first use by ``ops._build``.  The kernels take
-a 4-D tensor in ``channels_last`` memory or a 5-D one in ``channels_last_3d``,
-which is the (N = B*H*W or B*D*H*W, C) row-major view, in float32, bfloat16
-or float16; anything else raises, with no silent copy.  Each wrapper counts
-its kernel launches in a counter of ``utils.trace`` (``k2.launches``,
-``k2b.launches``).
+``bn_apply(x, mean, mean_sq, weight, bias, eps)`` is the normalize, y =
+((x - mean) * scale) + bias with scale = rsqrt(max(mean_sq - mean^2, 0) +
+eps) * weight in f32, stored in x's type (mmhand_tpu/models/layers.py:
+190-192), one ``autograd.Function`` whose backward forms dx = dy * scale
+and the gradients of mean, mean_sq, weight and bias from two per-channel
+sums (``bn_apply_forward``, ``bn_apply_backward``).
+
+Every wrapper dispatches on where ``x`` lies: a CPU tensor goes to the
+plain version beside it, a CUDA tensor to the hand-written kernels in
+``csrc/bn_stats.cu`` (K2 and K2b for the moments, ``bn_apply_kernel`` and
+``bn_apply_backward_kernel`` for the normalize), built at first use by
+``ops._build``.  The kernels take a 4-D tensor in ``channels_last`` memory
+or a 5-D one in ``channels_last_3d``, which is the (N = B*H*W or B*D*H*W,
+C) row-major view, in float32, bfloat16 or float16; anything else raises,
+with no silent copy.  Each wrapper counts its kernel launches in a counter
+of ``utils.trace`` (``k2.launches``, ``k2b.launches``,
+``bn_apply.launches``, ``bn_apply_bwd.launches``).
 
 K2's cut of the view (``sums_plan``: 16-byte loads at every C through
 super-rows of lcm(C, vec) elements, one wave of blocks) is decided
 here and passed to the kernel; ``bn_sums_by_plan`` sums under the same
 plan with the kernel's index arithmetic in plain PyTorch, so that the CPU
-tests reach it.
+tests reach it.  The normalize's kernels walk the same plan with no head:
+the wrapper hands them 16-byte aligned tensors, copying a view whose base
+is not (no convolution's output is such a view).
 """
 
 from __future__ import annotations
@@ -74,17 +86,17 @@ def _layout(x: torch.Tensor) -> torch.memory_format:
     return torch.channels_last if x.dim() == 4 else torch.channels_last_3d
 
 
-def rows_view(x: torch.Tensor) -> tuple[int, int]:
+def rows_view(x: torch.Tensor, what: str = "bn_sums") -> tuple[int, int]:
     """(N, C) of the row-major view the kernels read; raises on a tensor
-    they do not take."""
+    they do not take, naming ``what`` refused it."""
     if x.dim() not in (4, 5):
-        raise ValueError(f"bn_sums: x must be 4-D NCHW or 5-D NCDHW, got "
+        raise ValueError(f"{what}: x must be 4-D NCHW or 5-D NCDHW, got "
                          f"{tuple(x.shape)}")
     if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"bn_sums: x must be float32, bfloat16 or float16, "
+        raise TypeError(f"{what}: x must be float32, bfloat16 or float16, "
                         f"got {x.dtype}")
     if not x.is_contiguous(memory_format=_layout(x)):
-        raise ValueError("bn_sums: x must be in channels_last memory "
+        raise ValueError(f"{what}: x must be in channels_last memory "
                          "(channels_last_3d for 5-D; the (N, C) row-major "
                          "view); a BatchNorm input in another layout is a "
                          "fault of the module that made it")
@@ -386,3 +398,181 @@ def bn_moments(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     n = x.numel() // x.shape[1]
     s1, s2 = _BnSums.apply(x)
     return s1 / n, s2 / n
+
+
+def _inv_std(mean: torch.Tensor, mean_sq: torch.Tensor,
+             eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(E[x^2] - E[x]^2 before the clamp, rsqrt(var + eps)) per channel."""
+    raw = mean_sq - mean * mean
+    return raw, torch.rsqrt(torch.clamp(raw, min=0.0) + eps)
+
+
+def bn_apply_ref(x: torch.Tensor, mean: torch.Tensor, mean_sq: torch.Tensor,
+                 weight: torch.Tensor, bias: torch.Tensor,
+                 eps: float) -> torch.Tensor:
+    """Plain PyTorch normalize: ((x - mean) * scale) + bias in the moments'
+    type, scale = rsqrt(max(mean_sq - mean^2, 0) + eps) * weight, cast to
+    x's dtype."""
+    _, r = _inv_std(mean, mean_sq, eps)
+    y = ((x.to(mean.dtype) - _per_channel(mean, x))
+         * _per_channel(r * weight, x))
+    return (y + _per_channel(bias, x)).to(x.dtype)
+
+
+def bn_apply_backward_ref(dy: torch.Tensor, x: torch.Tensor,
+                          mean: torch.Tensor, mean_sq: torch.Tensor,
+                          weight: torch.Tensor, eps: float
+                          ) -> tuple[torch.Tensor, ...]:
+    """Plain PyTorch gradients of ``bn_apply_ref``: (dx, d_mean, d_mean_sq,
+    d_weight, d_bias).  dx = dy * scale in x's dtype; with a = sum dy and
+    b = sum dy (x - mean) per channel, d_bias = a, d_weight = b r, d_var =
+    -0.5 b weight r^3 where mean_sq - mean^2 >= 0 (torch.clamp's mask) and
+    0 elsewhere, d_mean_sq = d_var, d_mean = -(scale a) - 2 mean d_var."""
+    raw, r = _inv_std(mean, mean_sq, eps)
+    scale = r * weight
+    g = dy.to(mean.dtype)
+    a = g.sum(_other_axes(x))
+    b = (g * (x.to(mean.dtype) - _per_channel(mean, x))).sum(_other_axes(x))
+    dx = (g * _per_channel(scale, x)).to(x.dtype)
+    d_var = torch.where(raw >= 0, -0.5 * (b * weight) * (r * r * r), 0.0)
+    return dx, -(scale * a) - 2.0 * mean * d_var, d_var, b * r, a
+
+
+@functools.lru_cache(maxsize=None)
+def _apply_kernels():
+    from mmhand_torch.ops._build import load_library
+
+    lib = load_library()
+    forward = lib.mmhand_bn_apply
+    forward.argtypes = ([ctypes.c_void_p, ctypes.c_int]
+                        + [ctypes.c_void_p] * 4 + [ctypes.c_float]
+                        + [ctypes.c_void_p] * 3)
+    forward.restype = ctypes.c_int
+    backward = lib.mmhand_bn_apply_backward
+    backward.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+                         + [ctypes.c_void_p] * 3 + [ctypes.c_float]
+                         + [ctypes.c_void_p] * 6)
+    backward.restype = ctypes.c_int
+    return forward, backward
+
+
+def _channel_f32(c: int, *vectors: torch.Tensor) -> list[torch.Tensor]:
+    """Per-channel vectors as contiguous f32 (C,), as the kernels read them."""
+    out = [v.to(dtype=torch.float32).contiguous() for v in vectors]
+    if any(v.shape != (c,) for v in out):
+        raise ValueError(f"bn_apply: per-channel vectors must be ({c},), got "
+                         f"{[tuple(v.shape) for v in out]}")
+    return out
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it in its layout where its base is not 16-byte
+    aligned: the normalize's kernels load and store 16 bytes at a time."""
+    if t.data_ptr() % VEC_BYTES == 0:
+        return t
+    return torch.empty_like(t, memory_format=_layout(t)).copy_(t)
+
+
+def _apply_plan_of(x: torch.Tensor, what: str) -> SumsPlan:
+    """K2's plan for the (N, C) view of ``x``, with no head."""
+    n, c = rows_view(x, what)
+    return sums_plan(n, c, x.element_size(), 0, _sm_count(x.device.index))
+
+
+def _bn_apply_cuda(x, mean, mean_sq, weight, bias, eps) -> torch.Tensor:
+    plan = _apply_plan_of(x, "bn_apply")
+    x = _aligned(x)
+    stats = _channel_f32(plan.c, mean, mean_sq, weight, bias)
+    forward, _ = _apply_kernels()
+    y = torch.empty_like(x, memory_format=_layout(x))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = forward(x.data_ptr(), _DTYPE_CODES[x.dtype],
+                      *(v.data_ptr() for v in stats), eps, y.data_ptr(),
+                      _plan_args(plan), stream)
+    if err != 0:
+        raise RuntimeError(f"bn_apply kernel launch failed: cudaError {err}")
+    trace.count("bn_apply.launches")
+    return y
+
+
+def _bn_apply_backward_cuda(dy, x, mean, mean_sq, weight, eps):
+    plan = _apply_plan_of(x, "bn_apply_backward")
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"bn_apply_backward: dy {tuple(dy.shape)} {dy.dtype} "
+                         f"does not match x {tuple(x.shape)} {x.dtype}")
+    # autograd's gradient of y, which the kernel reads in y's layout
+    x, dy = _aligned(x), _aligned(dy.contiguous(memory_format=_layout(x)))
+    stats = _channel_f32(plan.c, mean, mean_sq, weight)
+    _, backward = _apply_kernels()
+    dx = torch.empty_like(x, memory_format=_layout(x))
+    grads = torch.empty(4, plan.c, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        scratch = torch.empty(plan.scratch_floats, dtype=torch.float32,
+                              device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = backward(x.data_ptr(), dy.data_ptr(), _DTYPE_CODES[x.dtype],
+                       *(v.data_ptr() for v in stats), eps, dx.data_ptr(),
+                       scratch.data_ptr(), grads.data_ptr(),
+                       _tickets(x.device, stream).data_ptr(),
+                       _plan_args(plan), stream)
+    if err != 0:
+        raise RuntimeError(f"bn_apply_backward kernel launch failed: "
+                           f"cudaError {err}")
+    trace.count("bn_apply_bwd.launches")
+    return (dx, *grads.unbind())
+
+
+def bn_apply_forward(x: torch.Tensor, mean: torch.Tensor,
+                     mean_sq: torch.Tensor, weight: torch.Tensor,
+                     bias: torch.Tensor, eps: float) -> torch.Tensor:
+    """The normalize of ``bn_apply_ref``, in x's dtype and layout:
+    bn_apply_kernel on a CUDA device, the plain version on the CPU."""
+    if x.device.type == "cpu":
+        return bn_apply_ref(x, mean, mean_sq, weight, bias, eps)
+    if x.device.type == "cuda":
+        return _bn_apply_cuda(x, mean, mean_sq, weight, bias, eps)
+    raise ValueError(f"bn_apply: no kernel for device {x.device}")
+
+
+def bn_apply_backward(dy: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
+                      mean_sq: torch.Tensor, weight: torch.Tensor,
+                      eps: float) -> tuple[torch.Tensor, ...]:
+    """(dx, d_mean, d_mean_sq, d_weight, d_bias) of ``bn_apply_backward_ref``:
+    bn_apply_backward_kernel on a CUDA device (f32 gradients), the plain
+    version on the CPU."""
+    if x.device.type == "cpu":
+        return bn_apply_backward_ref(dy, x, mean, mean_sq, weight, eps)
+    if x.device.type == "cuda":
+        return _bn_apply_backward_cuda(dy, x, mean, mean_sq, weight, eps)
+    raise ValueError(f"bn_apply_backward: no kernel for device {x.device}")
+
+
+class _BnApply(torch.autograd.Function):
+    """The normalize with its analytic backward: x, mean, mean_sq and weight
+    are saved (x is K2's saved input already), no full-size temporary."""
+
+    @staticmethod
+    def forward(ctx, x, mean, mean_sq, weight, bias, eps):
+        ctx.eps, ctx.bias_dtype = eps, bias.dtype
+        ctx.save_for_backward(x, mean, mean_sq, weight)
+        return bn_apply_forward(x, mean, mean_sq, weight, bias, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, mean, mean_sq, weight = ctx.saved_tensors
+        dx, d_mean, d_mean_sq, d_weight, d_bias = bn_apply_backward(
+            dy, x, mean, mean_sq, weight, ctx.eps)
+        return (dx, d_mean.to(mean.dtype), d_mean_sq.to(mean_sq.dtype),
+                d_weight.to(weight.dtype), d_bias.to(ctx.bias_dtype), None)
+
+
+def bn_apply(x: torch.Tensor, mean: torch.Tensor, mean_sq: torch.Tensor,
+             weight: torch.Tensor, bias: torch.Tensor,
+             eps: float) -> torch.Tensor:
+    """Train-mode BatchNorm's normalize of a (B, C, H, W) or (B, C, D, H, W)
+    tensor by its per-channel (mean, mean of squares): ((x - mean) *
+    scale) + bias, scale = rsqrt(max(mean_sq - mean^2, 0) + eps) * weight,
+    in f32 (float64 with float64 moments on the CPU), in x's dtype, with the
+    analytic backward (mmhand_tpu/models/layers.py:190-192)."""
+    return _BnApply.apply(x, mean, mean_sq, weight, bias, eps)

@@ -28,7 +28,12 @@ from mmhand_torch.models.check_nets import (
     make_test_pose_resnet,
     pose_resnet_f64,
 )
+from mmhand_torch.models.layers import BatchNorm2d, BatchNorm3d
 from mmhand_torch.ops.bn_stats import (
+    bn_apply_backward,
+    bn_apply_backward_ref,
+    bn_apply_forward,
+    bn_apply_ref,
     bn_sums,
     bn_sums_backward,
     bn_sums_backward_ref,
@@ -49,8 +54,8 @@ from mmhand_torch.utils import trace
 
 
 def launches(kernel: str) -> int:
-    """The launches of ``kernel`` ('k1', 'k2', 'k2b', 'k3') counted in
-    ``utils.trace``."""
+    """The launches of ``kernel`` ('k1', 'k2', 'k2b', 'k3', 'bn_apply',
+    'bn_apply_bwd') counted in ``utils.trace``."""
     return trace.counters().get(f"{kernel}.launches", 0)
 
 
@@ -360,6 +365,229 @@ def test_bn_kernels_refuse_other_layouts(cuda):
                          torch.zeros(8, device=cuda))
     with pytest.raises(TypeError):
         bn_sums(x.double().contiguous(memory_format=torch.channels_last))
+
+
+# the normalize's cases: the GAN step's four site shapes in bf16, the
+# largest in fp16 and f32, C=1, C=21, the voxel nets' largest 5-D site, and
+# views at bases off a 16-byte boundary (``offset`` elements into a flat
+# buffer): ragged C, 5-D, and a C that is a multiple of the vector width
+BN_APPLY_CASES = [((16, 64, 256, 256), torch.bfloat16, 0),
+                  ((16, 128, 128, 128), torch.bfloat16, 0),
+                  ((16, 256, 64, 64), torch.bfloat16, 0),
+                  ((16, 512, 64, 64), torch.bfloat16, 0),
+                  ((16, 64, 256, 256), torch.float16, 0),
+                  ((16, 64, 256, 256), torch.float32, 0),
+                  ((32, 1, 128, 128), torch.float32, 0),
+                  ((8, 21, 64, 64), torch.bfloat16, 0),
+                  ((8, 16, 64, 64, 64), torch.float32, 0),
+                  ((8, 16, 64, 64, 64), torch.bfloat16, 0),
+                  ((5, 1, 7, 9), torch.bfloat16, 1),
+                  ((9, 3, 5, 7), torch.float16, 1),
+                  ((4, 64, 9, 11), torch.bfloat16, 3),
+                  ((3, 21, 5, 7, 9), torch.float32, 1)]
+
+
+def _apply_inputs(shape, dtype, offset, seed, device):
+    """x in channels_last (channels_last_3d for 5-D) at ``offset`` elements
+    into a flat buffer, dy in the same layout, the plain moments of x and a
+    BatchNorm's weight and bias, from a seed."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    numel = int(np.prod(shape))
+    dims = (shape[0],) + tuple(shape[2:]) + (shape[1],)
+    flat = (torch.randn(offset + numel, generator=gen, device=device) * 1.5
+            + 0.3).to(dtype)
+    x = flat[offset:].view(dims).movedim(-1, 1)
+    dy = torch.randn(dims, generator=gen, device=device).to(dtype).movedim(-1, 1)
+    layout = torch.channels_last if len(shape) == 4 else torch.channels_last_3d
+    assert x.is_contiguous(memory_format=layout)
+    assert bool(x.data_ptr() % 16) == bool(offset * x.element_size() % 16)
+    s1, s2 = bn_sums_ref(x)
+    n = numel // shape[1]
+    weight = 1 + 0.02 * torch.randn(shape[1], generator=gen, device=device)
+    bias = 0.1 * torch.randn(shape[1], generator=gen, device=device)
+    return x, dy, s1 / n, s2 / n, weight, bias, layout
+
+
+def _channel(v, x):
+    return v.view((1, -1) + (1,) * (x.dim() - 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,offset", BN_APPLY_CASES)
+def test_bn_apply_kernels_match_plain(cuda, shape, dtype, offset):
+    """bn_apply_kernel and bn_apply_backward_kernel against the plain
+    version on the card, in the working type.  y and dx: the same f32
+    operations in the same order, held within two roundings of the working
+    type of the terms.  The per-channel gradients come from f32 sums taken in
+    another order: sum dy and sum dy (x - mean) held at 1e-5 of sum |dy|
+    and sum |dy (x - mean)|, carried through each gradient's formula."""
+    x, dy, mean, mean_sq, weight, bias, layout = _apply_inputs(
+        shape, dtype, offset, 17, cuda)
+    eps = 1e-5
+    before = (launches("bn_apply"), launches("bn_apply_bwd"))
+    y = bn_apply_forward(x, mean, mean_sq, weight, bias, eps)
+    dx, d_mean, d_mean_sq, d_weight, d_bias = bn_apply_backward(
+        dy, x, mean, mean_sq, weight, eps)
+    torch.cuda.synchronize()
+    assert (launches("bn_apply"), launches("bn_apply_bwd")) == (
+        before[0] + 1, before[1] + 1)
+    for t in (y, dx):
+        assert t.dtype == dtype and t.shape == x.shape
+        assert t.is_contiguous(memory_format=layout)
+    unit = torch.finfo(dtype).eps
+    r = torch.rsqrt(torch.clamp(mean_sq - mean * mean, min=0.0) + eps)
+    scale = _channel(r * weight, x)
+    xm = x.float() - _channel(mean, x)
+    y_ref = bn_apply_ref(x, mean, mean_sq, weight, bias, eps)
+    y_tol = 2 * unit * ((xm * scale).abs() + _channel(bias, x).abs())
+    assert bool(((y.float() - y_ref.float()).abs() <= y_tol).all())
+    want = bn_apply_backward_ref(dy, x, mean, mean_sq, weight, eps)
+    g = dy.float()
+    dx_tol = 2 * unit * (g * scale).abs()
+    assert bool(((dx.float() - want[0].float()).abs() <= dx_tol).all())
+    axes = (0,) + tuple(range(2, x.dim()))
+    sum_abs_dy = g.abs().sum(axes)
+    sum_abs_b = (g * xm).abs().sum(axes)
+    f32 = torch.finfo(torch.float32).eps
+    d_var_scale = 0.5 * weight.abs() * r ** 3
+    bounds = (
+        1e-5 * ((r * weight).abs() * sum_abs_dy
+                + 2 * mean.abs() * d_var_scale * sum_abs_b),
+        1e-5 * d_var_scale * sum_abs_b,
+        1e-5 * r * sum_abs_b,
+        1e-5 * sum_abs_dy)
+    for name, got, ref, bound in zip(
+            ("d_mean", "d_mean_sq", "d_weight", "d_bias"),
+            (d_mean, d_mean_sq, d_weight, d_bias), want[1:], bounds):
+        assert got.dtype == torch.float32 and got.shape == (shape[1],), name
+        excess = (got - ref).abs() - bound - 8 * f32 * ref.abs()
+        assert float(excess.max()) <= 0.0, (name, float(excess.max()))
+
+
+@pytest.mark.cuda
+def test_bn_apply_backward_bit_identical_across_calls(cuda):
+    """The backward's per-channel sums are added in one fixed order,
+    whichever block finishes last: two calls give the same bits."""
+    x, dy, mean, mean_sq, weight, _, _ = _apply_inputs(
+        (16, 256, 64, 64), torch.bfloat16, 0, 18, cuda)
+    first = [t.clone() for t in bn_apply_backward(dy, x, mean, mean_sq,
+                                                  weight, 1e-5)]
+    for _ in range(2):
+        again = bn_apply_backward(dy, x, mean, mean_sq, weight, 1e-5)
+        assert all(torch.equal(a, b) for a, b in zip(again, first))
+
+
+@pytest.mark.cuda
+def test_bn_apply_refuses_other_layouts(cuda):
+    x = torch.randn(2, 8, 4, 4, device=cuda)
+    c = torch.ones(8, device=cuda)
+    with pytest.raises(ValueError, match="channels_last"):
+        bn_apply_forward(x, c, c, c, c, 1e-5)
+    with pytest.raises(ValueError, match="channels_last"):
+        bn_apply_backward(x, x, c, c, c, 1e-5)
+    with pytest.raises(TypeError):
+        bn_apply_forward(x.double().contiguous(memory_format=torch.channels_last),
+                         c, c, c, c, 1e-5)
+
+
+@pytest.mark.cuda
+def test_bn_apply_counts_one_launch_per_site(cuda):
+    """Through a toy GAN train step, an eval-mode generator and a no-grad
+    train-mode forward: one forward launch per train-mode BatchNorm call,
+    one backward launch per call whose input needs a gradient, K2 and K2b
+    once each beside them, and none in eval mode."""
+    cfg = Config(model=ModelConfig(fine_size=32, ngf=8, ndf=8, g_n_blocks=2,
+                                   n_layers_d=2),
+                 optim=OptimConfig(pool_size=0),
+                 data=DataConfig(dataset="synthetic"))
+    with pytest.warns(UserWarning, match="RANDOM VGG19"):
+        system = build_system(cfg, cuda)
+    calls = {"train": 0, "grad": 0}
+
+    def record(module, args):
+        if module.training:
+            calls["train"] += 1
+            calls["grad"] += int(torch.is_grad_enabled()
+                                 and args[0].requires_grad)
+
+    nets = (system.generator, system.d_pb, system.d_pp)
+    hooks = [m.register_forward_pre_hook(record) for net in nets
+             for m in net.modules() if isinstance(m, (BatchNorm2d, BatchNorm3d))]
+    rng = np.random.RandomState(10)
+    batch = {k: torch.from_numpy(rng.uniform(
+        -1 if k[0] != "P" else 0, 1, (2, 32, 32, 21 if k[0] == "P" else 3)
+    ).astype(np.float32)).to(cuda) for k in ("H1", "P1", "D1", "H2", "P2", "D2")}
+    g_in = (batch["H1"], torch.cat([batch["P1"], batch["P2"]], -1),
+            torch.cat([batch["D1"], batch["D2"]], -1))
+    names = ("bn_apply", "bn_apply_bwd", "k2", "k2b")
+    try:
+        before = [launches(k) for k in names]
+        make_train_step(system)(batch, 2e-4)
+        torch.cuda.synchronize()
+        counted = [launches(k) - b for k, b in zip(names, before)]
+        assert calls["train"] > 0 and calls["grad"] > 0
+        assert counted == [calls["train"], calls["grad"]] * 2, (counted, calls)
+        step_calls = dict(calls)
+        before = [launches(k) for k in names]
+        with torch.no_grad():
+            system.generator.train()(g_in)
+        counted = [launches(k) - b for k, b in zip(names, before)]
+        assert counted == [calls["train"] - step_calls["train"], 0] * 2
+        before = [launches(k) for k in names]
+        system.generator.eval()(g_in)
+        torch.cuda.synchronize()
+        assert [launches(k) - b for k, b in zip(names, before)] == [0] * 4
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+@pytest.mark.cuda
+def test_batch_norm_train_pass_uses_bn_apply(cuda):
+    """A BatchNorm2d train-mode forward and backward in bf16 on the card
+    against today's op sequence (the moments, then the f32 normalize that
+    autograd differentiates) on the same card: output and input gradient
+    within two roundings of bf16, weight and bias gradients within f32
+    sums, the running statistics equal."""
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    x = (torch.randn(8, 64, 32, 32, generator=gen, device=cuda) * 1.5 + 0.3
+         ).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    w = torch.randn(x.shape, generator=gen, device=cuda).to(torch.bfloat16)
+    bn = BatchNorm2d(64).to(cuda)
+    with torch.no_grad():
+        bn.weight.normal_(1.0, 0.02, generator=gen)
+        bn.bias.normal_(0.0, 0.1, generator=gen)
+    ref = copy.deepcopy(bn)
+    xr = x.clone().requires_grad_()
+    y = bn(xr)
+    (y * w).sum().backward()
+    xo = x.clone().requires_grad_()
+    n = xo.numel() // 64
+    s1, s2 = bn_sums_ref(xo)
+    mean, mean_sq = s1 / n, s2 / n
+    var = torch.clamp(mean_sq - mean * mean, min=0.0)
+    with torch.no_grad():
+        ref.running_mean.lerp_(mean, ref.momentum)
+        ref.running_var.lerp_(var, ref.momentum)
+    scale = torch.rsqrt(var + ref.eps) * ref.weight
+    yo = ((xo.float() - mean.view(-1, 1, 1)) * scale.view(-1, 1, 1)
+          + ref.bias.view(-1, 1, 1)).to(torch.bfloat16)
+    (yo * w).sum().backward()
+    unit = torch.finfo(torch.bfloat16).eps
+    assert float((y.float() - yo.float()).abs().max()) <= 2 * unit * float(
+        yo.float().abs().max())
+    gap = (xr.grad.float() - xo.grad.float()).norm() / xo.grad.float().norm()
+    assert float(gap) <= 2 * unit, float(gap)
+    # f32 sums in two orders: at 1e-5 of the sums of |terms|
+    g, xm = w.float(), x.float() - mean.view(-1, 1, 1)
+    bound_b = 1e-5 * g.abs().sum((0, 2, 3))
+    bound_w = 1e-5 * (g * xm).abs().sum((0, 2, 3)) * torch.rsqrt(var + ref.eps)
+    assert bool(((bn.bias.grad - ref.bias.grad).abs() <= bound_b).all())
+    assert bool(((bn.weight.grad - ref.weight.grad).abs() <= bound_w).all())
+    # K2's moments against the plain sums', lerped by 0.1
+    for a, b in ((bn.running_mean, ref.running_mean),
+                 (bn.running_var, ref.running_var)):
+        assert float((a - b).abs().max()) <= 2e-6
 
 
 @pytest.mark.cuda

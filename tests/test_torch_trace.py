@@ -261,7 +261,8 @@ def test_setup_and_launch_counters_read_the_registry():
         assert collective_launches() >= 3
         trace.reset()
         assert kernel_launches() == {"gaussian_heatmaps": 0, "bn_sums": 0,
-                                     "bn_sums_backward": 0}
+                                     "bn_sums_backward": 0, "bn_apply": 0,
+                                     "bn_apply_backward": 0}
         assert collective_launches() == 0
     finally:
         trace.reset()
