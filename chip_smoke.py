@@ -1,176 +1,48 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port (mmhand_torch) on one NVIDIA GPU.
+"""The PyTorch port (mmhand_torch) on one NVIDIA GPU: its kernel table and
+a full-width drive of every user path.
 
     python3 chip_smoke.py
 
 1. Builds the port's CUDA kernels from mmhand_torch/csrc/ with nvcc.
-2. Holds each kernel against its plain PyTorch version on the card, at the
-   main paths' shapes and at a ragged one, and times it beside its plain
-   version, its bound and, where one exists, the one PyTorch call that
-   computes the same function: K1 (heatmaps; also on the main paths'
-   keypoints and on its early-out's hard cases, with the share of elements
-   it skips), K2 (BatchNorm sums; ``torch.batch_norm_stats``) and K2b
-   (their backward; ``torch.addcmul``).  Each kernel's
-   device time per call comes from the profiler beside its CUDA-event time,
-   which includes the wrapper's host work.  K2 is also held at its edge
-   cases (C 1, 2, 3, 5 and 21 with N mod k != 0, unaligned bases) and
-   timed at the main paths' BatchNorm sites by a CUDA graph of 50 calls
-   (the GAN step's four shapes and K2 per step, the MSRA/V2V C=1, C=21 and
-   largest 5-D sites, PoseResNet-50's 56 inputs), twice, beside its bound
-   and ``torch.batch_norm_stats`` timed the same way.  The train-mode
-   normalize's two kernels (``bn_apply``) are held against their plain
-   version and timed the same way at the GAN step's sites and the MSRA/V2V
-   group's, beside the op sequence they replaced; every path's count of
-   their launches must equal K2's and K2b's.
-3. Holds the port on the card against the port on the CPU (the path the
-   tests hold against mmhand_tpu) on small inputs, in float32 with TF32
-   off: batch preparation and a toy generator; two toy train steps.
-4. Drives the generation path at full width (ngf 64, 9 PATBlocks, 256x256,
-   batch norm, bf16 autocast, gen_batch 16) through
-   ``mmhand_torch.scripts.aug.main`` over the synthetic dataset, counting the
-   kernel launches of that run, then checks the written PNGs against the
-   generator's output and the bf16 output against float32.
-5. Drives the train step at full width (the flagship Config(), batch 16, 6
-   steps) through ``mmhand_torch.scripts.train.main``, counting the kernel
-   launches of that run; checks the losses of every step, that every
-   network and running statistic moved, and that ``aug.main`` generates
-   from the saved generator; times one step's phases and profiles one step,
-   with K2's and K2b's bounds summed over the step's 101 BatchNorm calls.
-6. Holds K3 (the jointsmap rasterizer) against its plain version run on the
-   CPU, bit for bit, on poses, the baselines' poses and degenerate bones,
-   with the share of (pixel, bone) pairs its tiles skip, and the
-   evaluation modules on the card against the CPU
-   (Inception, SSIM, the CPM judge, the conditioning image), in float32
-   with TF32 off.
-7. Drives the evaluation path at full width (256 px, 64 pairs of the
-   synthetic dataset): ``mmhand_torch.scripts.evaluate_gan.main`` over the
-   generator the train phase saved (eval_batch 16), then
-   ``mmhand_torch.scripts.bench_baselines.main`` with the CycleGAN resnet
-   (ngf 64, 9 blocks) and the pix2pix UNet (8 downs) at eval_batch 8,
-   counting the kernel launches of each run; checks that every score is
-   finite over 64 images and that K3 ran once per baseline batch; times one
-   batch's parts and profiles one baseline batch.
+2. The kernel table (PERF.md section 6): each kernel's time by CUDA
+   events, its device time by the profiler, its plain version's time, the
+   one PyTorch call that computes the same function where there is one, and
+   its bound (``benchmark.roofline``): K1 (heatmaps), K2 (BatchNorm sums),
+   K2b (their backward), the train-mode normalize (``bn_apply``) and K3
+   (the jointsmap rasterizer).  Each is held against its plain version
+   at the shape it is timed at: K1 within 1e-6 off the clip boundary and
+   0 where it skips, K2 within 1e-5 of sum |x| and sum x^2, K2b bit for
+   bit, K3 bit for bit against the CPU, the normalize within a few
+   roundings.  K2 and the normalize are also timed at the main paths'
+   BatchNorm sites by CUDA graphs, beside torch's own BatchNorm kernels.
+3. Drives every user path at full width through its script's ``main()``
+   (or the library call a path has no script for), with the checks along
+   it (losses, scores and parameters finite, nets moved, files written)
+   and the launches of each kernel: generation (``aug``); training
+   (``train`` in bf16, fp16 with loss scaling, resumed, NCCL at world 1,
+   two gloo ranks on the card, the kill-and-resume demo); evaluation
+   (``evaluate_gan``, ``bench_baselines``); HPE (``train_hpe``,
+   ``test_hpe``, the ratio driver ``mm_train_ratio --with_hand3d``);
+   stages 1-2 from raw frames (``create_rhd_db``, ``create_stb_db``,
+   ``export_baseline_formats``, ``generate_pose_maps``, ``train --dataset
+   MMHand``, ``bench_baselines --arch patn2``); the library nets
+   (PoseResNet-50, the PatchGANs, PATN2, every init_type); hand3d
+   (``train_hand3d``, ``create_hand3d_db``, ``eval_hand3d``,
+   ``run_hand3d``, ``handpose_judge``); the MSRA/V2V group.  Each path's
+   launches of the normalize's two kernels must equal K2's and K2b's.
 
-Between the train and evaluation paths, the rest of the trainer:
+Every other check has its own home: each kernel's sweep over shapes,
+types and edge cases, and the card against the CPU, in
+tests/test_torch_cuda.py (``python -m
+pytest --noconftest -m cuda tests/test_torch_cuda.py``), the cells' rates
+and per-layer times in the benchmark (``python3 -m benchmark.run``).
 
-8. The fp16 slice: 6 flagship steps through ``train()`` with
-   ``PrecisionConfig(compute_dtype="float16", loss_scaling=True)``; checks
-   finite losses and parameters and 101 K2/K2b launches per step; prints the
-   rate, the overflow steps, the final scales and one step with and without
-   the scalers (K2/K2b also run in f16 at (16, 64, 256, 256) in phase 2).
-9. Resume: 3 flagship steps through ``scripts.train.main``, their
-   ``state_latest.pt`` saved and restored into a fresh system tensor for
-   tensor, 3 more with ``--continue_train`` up to step 6; then at toy size
-   3 + 3 resumed steps against 6 unbroken ones (f32, TF32 off,
-   deterministic algorithms), bit for bit wherever two unbroken runs agree,
-   else within the train tests' bound.
-10. Data parallelism at world size 1 over NCCL: ``torch.distributed.run``
-    launches this script as one rank (``--dp-worker``), which runs 3 flagship
-    steps through ``train(distributed=True)``; prints its step beside the
-    single-process step and its all-reduces per step.
-11. Two ranks on the one card over gloo (``--gloo-worker``): the dry run's
-    three toy DP steps (``parallel.dryrun``: the GAN, HPE ``hpm`` at 32 px
-    with the full-width CPM nets, hand3d lifting at crop 32; f32, TF32 off,
-    dropout off), each against the single-process step on the full batch.
-12. The kill-and-resume demo (``mmhand_torch.scripts.longrun_demo``) at the
-    flagship's width (batch 16, 256 px, bf16, the 64-item block tree):
-    leg 1 saves at step 950, after the loss has left its plateau, and is
-    killed by SIGKILL at step 960; leg 2 resumes at 950 for 50 steps; the
-    JAX tool's continuity, descent and live-plot checks at its thresholds,
-    and the loss before the kill already below 0.7 of the first tenth's
-    (so that a re-initialized generator, back near the start, would fail
-    continuity); SSIM of the trained generator on the training pairs; leg
-    2's K1, K2 and K2b launches as its trainer prints them (two K1 and 101
-    K2/K2b per step).
-
-After the evaluation path, the HPE slice and the ratio study:
-
-13. HPE train: an RHD-layout crop tree (64 random images at 256 px, packed
-    depth, annotation.pickle), then ``mmhand_torch.scripts.train_hpe.main
-    --model hpm`` at full width (Hpm2d and Hpm3d, bf16 autocast) at batch
-    32 for 6 steps, counting the kernel launches of that run (K1 once per
-    step, at sigma 5); checks the losses and that the nets moved; holds K1
-    at sigma 5 on the batch's keypoints at (32, 256, 256, 21) against its
-    plain version; times one step (CUDA events) against its FLOP count and
-    profiles it.
-14. HPE test: ``mmhand_torch.scripts.test_hpe.main`` on that checkpoint,
-    ``--model hpm`` and ``hpm3d``; every score finite (random weights, so
-    structural only).
-15. The ratio study: ``python -m mmhand_torch.scripts.mm_train_ratio`` at
-    ratios 0.5 and 1.0 on that tree (the flagship GAN one epoch at batch
-    32, aug, the HPE one epoch, test_hpe) with ``--with_hand3d
-    --hand3d_iters 4`` (at ratio 0.5: create_hand3d_db over the generated
-    images, 4 posenet iterations, eval_hand3d --mode 2d), each stage a
-    process of its own that must exit 0; checks that aug wrote exactly the
-    images ``HPEMixDataset`` marks, that posenet's loss on the generated
-    images is above 0 and its EPE and AUC finite, and prints each stage's
-    command and summary.
-
-After the ratio study, stages 1-2 from raw frames and the rest of the
-baseline zoo:
-
-16. Preprocessing: raw RHD-layout frames it writes (128 training and 32
-    evaluation frames of 320x320, two hands each: the split into left and
-    right, the right hand's flip, rejected hands and dropped masks run) and
-    an STB-layout source (B1 and B4, SK_color, BB_left and BB_right 640x480
-    frames, ``labels/*.mat``) through ``mmhand_torch.scripts.create_rhd_db``
-    and ``create_stb_db`` to 256 px crops; checks every crop's keypoints
-    inside it and B4 only under ``test/``, and prints crops per second.
-17. The exports on the RHD training crops: ``export_baseline_formats``
-    pairs, keypoints and pix2pixhd (K3 once per 64 labels, one batch held
-    against the plain rasterizer run on the CPU bit for bit), then
-    ``generate_pose_maps`` at 256x256, sigma 6.
-18. CSV training: ``scripts.train --dataset MMHand`` on that chain, the
-    flagship Config() at batch 16, bf16, 6 steps: finite losses and
-    parameters, 101 K2 and K2b launches per step and no K1; one step by
-    CUDA events and the host's read of one prerendered batch.
-19. PATN2 scoring: ``bench_baselines --arch patn2`` (ngf 64, 9 blocks) over
-    the RHD evaluation crops at eval batch 8: finite scores, K1 twice per
-    batch, K1 held against its plain version on a batch's keypoints.
-20. The library nets: PoseResNet-50 at batch 32 and 256 px (an eval
-    forward; a train-mode forward and backward with K2/K2b at its 56
-    BatchNorms; K2 over those inputs against ``torch.batch_norm_stats``;
-    at batch 2 in float32 the output and running statistics against the
-    CPU's plain version, the gradients against a float64 functional
-    forward); NLayerDiscriminator, PixelDiscriminator and PATN2Stream
-    against the CPU and in train mode on the card; every init_type on the
-    flagship generator, each conv weight's std against its formula.
-21. The hand3d stack (ColorHandPose3D), at the scripts' 256 px, crop 256,
-    batch 8, float32: the five nets, the 6-tuple, derive_batch,
-    single_obj_scoremap and crop_and_resize on the card against the CPU at
-    64 px with TF32 off (after phase 3); ``train_hand3d.main`` for
-    handsegnet, posenet and lifting (proposed), 6 steps each on synthetic
-    records, and posenet resumed for 2 (finite losses, every tensor moved,
-    one step and derive_batch timed); ``create_hand3d_db`` over the 160
-    RHD training crops and ``eval_hand3d`` in its three modes over that DB,
-    the whole pipeline's ms per batch and single_obj_scoremap's share;
-    ``run_hand3d`` on two crops and ``handpose_judge`` with both judges.
-    The hand3d nets hold no BatchNorm and no kernel of the port: their
-    paths launch none.
-22. The MSRA/V2V group: an MSRA15-layout tree (16 frames of 320x240, a
-    hand near 350 mm) through ``MSRAHandDataset`` and ``voxel_sample``;
-    ``V2VVoxelization`` (64^3, cube 200 mm, augmentation) on 8 samples on
-    the card against the CPU with the same draws (coordinates within 1e-4
-    voxel, cubes equal but for voxels on a voxel edge or a bone's
-    boundary, counted); VoxelGenerator, VoxelDiscriminator, DepthGenerator
-    and DepthDiscriminator card against CPU in float32 with TF32 off at
-    16^3, 64^3, batch 4 and 256 px (outputs, gradients but those of the
-    conv biases before a BatchNorm, running statistics); one train
-    step of each at full width (batch 8 on 64^3, batch 32, batch 8 at 256
-    px; f32, cuDNN defaults): finite losses, every tensor moved, K2 and
-    K2b once per BatchNorm (43 in all), each held against its plain
-    version on every input; K2b timed at the C=1 and C=21 sites and the
-    largest 5-D one beside its bound; a profiled VoxelGenerator step; and
-    ``knn_pose_distance`` (k 25) over 76,375 random poses on the card
-    against the CPU, timed per query.
-
-The kernels' JSON line gives each kernel's ``max_rel_err`` beside its
-``max_abs_err`` where an absolute error alone misleads: K2's sums of
-squares over 1M elements reach ~2.4e6, where one f32 ulp is 0.25.  It prints the kernels'
-JSON line, then the card's name and power limit, then
-``{"ok": true, "device": {...}}`` as the last line.  Any failed phase raises
-and the exit code is not 0; without a CUDA device, or without the package
-beside this file, it stops before printing any result.
+It prints ``launches by path``, ``phase seconds``, the kernels' JSON line,
+the card's name and power limit, then ``{"ok": true, "device": {...}}`` as
+the last line.  Any failed check raises and the exit code is not 0;
+without a CUDA device, or without the package beside this file, it stops
+before printing any result.
 """
 
 from __future__ import annotations
@@ -203,19 +75,6 @@ K2B_KERNELS = ("bn_sums_backward_kernel",)
 K3_KERNELS = ("jointsmap_kernel",)
 BN_APPLY_KERNELS = ("bn_apply_kernel",)
 BN_APPLY_BWD_KERNELS = ("bn_apply_backward_kernel",)
-# the largest BatchNorm input of the train step (in bf16, and in f16 for the
-# fp16 slice), a PATBlock attention stream's, and a ragged shape in f32
-BN_SHAPES = [((16, 64, 256, 256), "bfloat16"), ((16, 64, 256, 256), "float16"),
-             ((16, 512, 64, 64), "bfloat16"), ((3, 29, 37, 41), "float32")]
-# K2's edge cases, held but not timed: C no multiple of the vector width
-# with N mod k != 0, then views at an unaligned base (``big[1:]``, H*W odd),
-# the last two of fewer elements than the head before a 16-byte boundary
-BN_EDGE_SHAPES = [((3, c, 7, 9), dtype, 0) for c in (1, 2, 3, 5, 21)
-                  for dtype in ("float32", "bfloat16")]
-BN_EDGE_SHAPES += [((5, 1, 7, 9), "float32", 1), ((9, 3, 5, 7), "float16", 1),
-                   ((33, 1, 127, 129), "float32", 1),
-                   ((3, 21, 5, 7, 9), "float32", 1),
-                   ((2, 1, 1, 1), "float32", 1), ((2, 1, 1, 1), "bfloat16", 1)]
 # the train slice: the JAX Config() flagship (ngf 64, 9 PATBlocks, 256 px),
 # batch 16, a few steps; its BatchNorms: 47 in G, 9 in each D, run once in
 # G, twice in the G loss's D forwards and twice in each D phase
@@ -236,15 +95,6 @@ LONGRUN = dict(items=64, save_every=950, print_freq=10, kill_after_prints=96,
 # the evaluation slice: 64 pairs at 256 px; evaluate_gan at batch 16, the
 # baselines at batch 8 (the JAX scripts' defaults)
 EVAL = dict(n_items=64, gan_batch=16, baseline_batch=8)
-# K3's shapes: the baselines' batch, the generation batch, a ragged one,
-# then the edge cases at batch 2
-K3_SHAPES = [("poses", 8, 256, 256), ("poses", 16, 256, 256),
-             ("poses", 3, 70, 90), ("occlusion", 2, 256, 256),
-             ("tie", 2, 256, 256), ("zero_length", 2, 256, 256),
-             ("parked", 2, 256, 256), ("tiny", 2, 256, 256),
-             ("floor", 2, 256, 256), ("nan", 2, 256, 256),
-             ("long", 2, 256, 256), ("graze", 2, 256, 256),
-             ("graze", 3, 70, 90)]
 # f32 operations per pixel and bone in K3: 2 subtractions, 6 products and
 # 3 sums, 2 divisions, 2 comparisons, 1 select
 K3_OPS_PER_PIXEL_BONE = 16
@@ -262,19 +112,18 @@ PRE = dict(rhd_frames=128, rhd_eval_frames=32, stb_frames=32, label_batch=64)
 CSV_TRAIN = dict(batch=16, steps=6, sigma=6.0)
 # PATN2 scoring of the evaluation crops at the JAX script's eval batch
 PATN2 = dict(batch=8)
-# PoseResNet-50 (SimpleBaselines) with its 56 BatchNorms: batch 32 at 256 px,
-# against the CPU at batch 2
-POSE = dict(size=50, batch=32, cpu_batch=2, bn_sites=56)
+# PoseResNet-50 (SimpleBaselines) with its 56 BatchNorms: batch 32 at 256 px
+POSE = dict(size=50, batch=32, bn_sites=56)
 # the hand3d stack: the scripts' 256 px, crop 256 and batch 8, float32
-# (mmhand_tpu's dtype), 6 train steps per subnet; card against CPU at 64 px
-HAND3D = dict(size=256, crop=256, batch=8, steps=6, check_size=64)
+# (mmhand_tpu's dtype), 6 train steps per subnet
+HAND3D = dict(size=256, crop=256, batch=8, steps=6)
 # the MSRA/V2V group: 16 MSRA-layout frames, 8 of them voxelized at 64^3
 # (cube 200 mm) with augmentation; the nets at their fixed widths,
 # VoxelGenerator and VoxelDiscriminator at batch 8 on 64^3, DepthGenerator
-# at batch 32, DepthDiscriminator at batch 8 on 256x256; card against CPU at
-# 16^3 (VoxelGenerator); the pose search over MSRA15's 76,375 frames, k 25
+# at batch 32, DepthDiscriminator at batch 8 on 256x256; the pose search
+# over MSRA15's 76,375 frames, k 25
 MSRA = dict(frames=16, samples=8, cubic=200.0, depth_g_batch=32,
-            depth_d_batch=8, check_side=16, poses=76375, k=25)
+            depth_d_batch=8, poses=76375, k=25)
 # the four nets' train-mode BatchNorms: 31 + 4 + 5 + 3
 MSRA_BN_SITES = {"VoxelGenerator": 31, "VoxelDiscriminator": 4,
                  "DepthGenerator": 5, "DepthDiscriminator": 3}
@@ -290,9 +139,6 @@ MSRA_BN_TIMED = [(8, 1, 64, 64, 64), (32, 1, 128, 128), (8, 1, 256, 256),
 # outgrow so that every call reads its input from HBM, as the bound counts
 GRAPH_CALLS = 50
 L2_BYTES = 50e6
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM
-F32_FLOPS = 67e12           # H100 SXM, outside the tensor cores
-BF16_FLOPS = 989e12         # H100 SXM, dense bf16 on the tensor cores
 
 
 def check(ok: bool, what: str) -> None:
@@ -397,224 +243,87 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def heatmap_error(got, want, uv, height, width, sigma):
-    """Max |got - want| off the clip boundary: pixels whose unclipped
-    Gaussian (float64) lies within 1e-6 of 0.0099 are exempt, because there a
-    last-bit difference in exp flips the clip and jumps by 0.0099."""
+def kernel_phase():
+    """K1's row of the kernel table at the main paths' shape, sigma 6, on
+    keypoints uniform over the frame +-10%; the share of elements its
+    early-out skips on the main paths' target keypoints."""
     import torch
 
-    from mmhand_torch.ops.heatmap import CLIP_LO
-
-    u = uv.double()
-    rows = torch.arange(height, device=uv.device, dtype=torch.float64)
-    cols = torch.arange(width, device=uv.device, dtype=torch.float64)
-    d2 = ((cols[:, None] - u[..., 0][..., None, None, :]) ** 2
-          + (rows[:, None, None] - u[..., 1][..., None, None, :]) ** 2)
-    g = torch.exp(-d2 / (2.0 * sigma * sigma))
-    keep = (g - CLIP_LO).abs() > 1e-6
-    return float(((got - want).abs() * keep).max()), int((~keep).sum())
-
-
-def heatmap_case(name: str, sigma: float, batch: int, height: int,
-                 width: int):
-    """K1's early-out cases of tests/test_torch_cuda.py (on the CPU):
-    keypoints on the frame's edges and corners (edges), off it (off_frame),
-    or with pixel (30, 10 + dy) at d^2 within a few ulps of the threshold
-    (near_threshold)."""
-    import numpy as np
-    import torch
-
-    from mmhand_torch.ops.heatmap import skip_d2
-
-    rng = np.random.RandomState(SEED)
-    size = np.array([width - 1, height - 1], np.float32)
-    uv = rng.uniform(0, 1, (batch, 21, 2)) * size
-    if name == "edges":
-        side = rng.randint(0, 2, (batch, 21))
-        edge = rng.randint(0, 2, (batch, 21)) * size[side]
-        np.put_along_axis(uv, side[..., None], edge[..., None], -1)
-        uv[:, :4] = [[0, 0], [width - 1, 0], [0, height - 1], size]
-        uv[:, 4:8] += rng.choice([-0.5, 0.5], (batch, 4, 2))
-    elif name == "off_frame":
-        far = rng.uniform(0.5, 40, (batch, 21))
-        uv[:, :7, 0] = -far[:, :7]
-        uv[:, 7:14, 0] = width - 1 + far[:, 7:14]
-        uv[:, 14:, 1] = rng.choice([-1, 1], (batch, 7)) * (height + far[:, 14:])
-    elif name == "near_threshold":
-        t = np.float64(np.float32(skip_d2(sigma)))
-        dy = np.arange(21) % int(np.sqrt(t))
-        eps = rng.choice([-3e-7, -1e-7, 0.0, 1e-7, 3e-7], (batch, 21))
-        uv = np.stack(np.broadcast_arrays(
-            30.0 - np.sqrt(t * (1 + eps) - dy * dy), 10.0 - dy), -1)
-    return torch.from_numpy(np.asarray(uv, np.float32))
-
-
-def check_heatmaps(uv, height: int, width: int, sigma: float, what: str):
-    """K1 on the card against the plain version on the card (max |error|
-    off the clip boundary at most 1e-6: the plain version on CUDA divides by
-    2 sigma^2 as a multiply by its reciprocal, K1 divides), and 0 wherever
-    the early-out skipped, as the plain version is there.  Returns (error,
-    exempt pixels, skipped share)."""
-    import torch
-
+    from benchmark import roofline
+    from mmhand_torch.config import Config, DataConfig, ModelConfig
     from mmhand_torch.ops.heatmap import (
+        CLIP_LO,
         gaussian_heatmaps,
         gaussian_heatmaps_ref,
         skipped_elements,
     )
 
-    got = gaussian_heatmaps(uv, height, width, sigma)
-    torch.cuda.synchronize()
-    want = gaussian_heatmaps_ref(uv, height, width, sigma)
-    check(got.shape == want.shape == uv.shape[:-2] + (height, width, 21),
-          f"K1 {what}: shape {tuple(got.shape)}")
-    err, exempt = heatmap_error(got, want, uv, height, width, sigma)
-    check(err <= 1e-6, f"K1 {what}: differs from the plain version by {err}")
-    check(exempt <= 1e-3 * got.numel(), f"K1 {what}: {exempt} pixels exempt")
-    skipped = skipped_elements(uv, height, width, sigma)
-    check(not bool(want[skipped].any()) and not bool(got[skipped].any()),
-          f"K1 {what}: an element the early-out skips is not 0")
-    return err, exempt, float(skipped.float().mean())
-
-
-def kernel_phase():
-    """K1 against gaussian_heatmaps_ref on the card, at the main paths'
-    shape, on the main paths' keypoints, on the early-out's hard cases and
-    at a ragged shape; returns its record."""
-    import torch
-
-    from mmhand_torch.config import Config, DataConfig, ModelConfig
-    from mmhand_torch.ops.heatmap import gaussian_heatmaps, gaussian_heatmaps_ref
-
     rng = torch.Generator().manual_seed(SEED)
     batch, size, sigma = FULL["gen_batch"], FULL["size"], 6.0
     uv = ((torch.rand(batch, 21, 2, generator=rng) * 1.2 - 0.1) * size).cuda()
-    err, exempt, skipped = check_heatmaps(uv, size, size, sigma, "uniform")
+    skipped = float(skipped_elements(uv, size, size, sigma).float().mean())
+    got = gaussian_heatmaps(uv, size, size, sigma)
+    want = gaussian_heatmaps_ref(uv, size, size, sigma)
+    # where exp's last bit flips the clip, one side is 0, the other ~CLIP_LO
+    flip = (torch.minimum(got, want).eq(0)
+            & (torch.maximum(got, want) - CLIP_LO).abs().le(2e-6))
+    err = float(((got - want).abs() * ~flip).max())
+    flips = int(flip.sum())
+    check(err <= 1e-6 and flips <= 1e-3 * got.numel()
+          and not bool(got[skipped_elements(uv, size, size, sigma)].any()),
+          f"K1: {err} from the plain version off the clip boundary, "
+          f"{flips} pixels on it, or a skipped element not 0")
     ms = cuda_ms(lambda: gaussian_heatmaps(uv, size, size, sigma))
     device_ms = kernel_device_ms(
         lambda: gaussian_heatmaps(uv, size, size, sigma), K1_KERNELS)
     plain_ms = cuda_ms(lambda: gaussian_heatmaps_ref(uv, size, size, sigma))
-    out_bytes = batch * size * size * 21 * 4
-    # f32 writes of the output; the exp and its ~9 operations only where
-    # the early-out leaves an element
-    k1_bound, k1_by = bound(out_bytes + uv.numel() * 4,
-                            9 * (1 - skipped) * out_bytes / 4)
+    # bytes set the bound: at most 9 operations an f32 element written,
+    # under the H100's 20 a byte (K2, K2b: 1.5 and 0.5 a bf16 byte)
+    k1_bound = roofline.k1_bound_s(uv, size, size, sigma) * 1e3
     tiny = uv[:1] * (8.0 / size)
     wrapper_us = host_us(lambda: gaussian_heatmaps(tiny, 8, 8, sigma))
-    print(f"K1 gaussian_heatmaps ({batch}, {size}, {size}, 21), keypoints "
-          f"uniform over the frame +-10%: max_abs_err {err} ({exempt} "
-          f"clip-boundary pixels exempt); early-out skips {skipped:.4f} of "
-          f"the elements; kernel {ms:.4f} ms per call ({device_ms:.4f} ms of "
-          f"device time, profiler; the wrapper's host work {wrapper_us:.1f} "
-          f"us per call at (1, 8, 8)), plain {plain_ms:.4f} ms, bound "
-          f"{k1_bound:.4f} ms ({k1_by}); no single PyTorch call computes the "
-          f"same function")
-    record = {"name": "gaussian_heatmaps", "route": "cuda",
-              "source": "mmhand_torch/csrc/heatmap.cu",
-              "replaces": K1_REPLACES, "max_abs_err": err,
-              "max_rel_err": None, "ms": ms,
-              "plain_ms": plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
-              "library_ms": None, "device_ms": device_ms}
-
     # the keypoints the main paths render: the synthetic set's first batch
     cfg = Config(model=ModelConfig(fine_size=size),
                  data=DataConfig(dataset="synthetic"), is_train=False)
-    raw = raw_batch(cfg, batch)
-    for side in ("src_uv", "tgt_uv"):
-        uv = torch.from_numpy(raw[side]).cuda()
-        err, exempt, skipped = check_heatmaps(uv, size, size, sigma, side)
-        ms = cuda_ms(lambda: gaussian_heatmaps(uv, size, size, sigma))
-        device_ms = kernel_device_ms(
-            lambda: gaussian_heatmaps(uv, size, size, sigma), K1_KERNELS)
-        print(f"K1 on the main paths' {side} ({batch}, {size}, {size}, 21): "
-              f"max_abs_err {err} ({exempt} exempt); early-out skips "
-              f"{skipped:.4f} of the elements; kernel {ms:.4f} ms per call "
-              f"({device_ms:.4f} ms of device time)")
-        if side == "tgt_uv":
-            record["skipped_share"] = skipped
-
-    for name in ("edges", "off_frame", "near_threshold"):
-        for s in (5.0, 6.0):
-            for b, h, w in ((batch, size, size), (3, 70, 90)):
-                uv = heatmap_case(name, s, b, h, w).cuda()
-                err, exempt, skipped = check_heatmaps(uv, h, w, s, name)
-                print(f"K1 {name} sigma {s} ({b}, {h}, {w}, 21): max_abs_err "
-                      f"{err} ({exempt} exempt), skips {skipped:.4f}")
-    return record
+    tgt = torch.from_numpy(raw_batch(cfg, batch)["tgt_uv"])
+    main_skipped = float(skipped_elements(tgt, size, size, sigma).float()
+                         .mean())
+    print(f"K1 gaussian_heatmaps ({batch}, {size}, {size}, 21), keypoints "
+          f"uniform over the frame +-10%: early-out skips {skipped:.4f} of "
+          f"the elements ({main_skipped:.4f} on the main paths' tgt_uv); "
+          f"kernel {ms:.4f} ms per call ({device_ms:.4f} ms of device time, "
+          f"profiler; the wrapper's host work {wrapper_us:.1f} us per call "
+          f"at (1, 8, 8)), plain {plain_ms:.4f} ms ({err:.3g} apart off the "
+          f"clip boundary, {flips} pixels on it), bound {k1_bound:.4f} ms "
+          f"(bytes); no single PyTorch call computes the same function")
+    return {"name": "gaussian_heatmaps", "route": "cuda",
+            "source": "mmhand_torch/csrc/heatmap.cu", "replaces": K1_REPLACES,
+            "max_abs_err": err, "max_rel_err": None,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": k1_bound,
+            "bound_by": "bytes", "library_ms": None, "device_ms": device_ms,
+            "skipped_share": main_skipped}
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    """Least milliseconds for the work on an H100 SXM at 700 W: bytes over
-    3.35 TB/s of HBM, f32 operations over 67 TFLOP/s, whichever is larger."""
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+    """Least milliseconds for the work on an H100 SXM at 700 W
+    (``benchmark.roofline.bound_s``), and which of bytes and f32
+    operations sets it."""
+    from benchmark import roofline
 
-
-def bn_errors(x, g1, g2):
-    """K2 and K2b on ``x`` (channels_last, on the card) against their plain
-    versions.  Returns K2's relative errors of sum x and sum x^2, its
-    largest absolute error, K2b's largest difference and K2b's output.
-    K2 sums in f32 in another order than the plain version, so its error is
-    held relative to sum |x| and sum x^2, which bound the rounding of any
-    order; K2b is the plain formula in the same order, one rounding per
-    operation, so it must agree bit for bit."""
-    import torch
-
-    from mmhand_torch.ops.bn_stats import (
-        bn_sums,
-        bn_sums_backward,
-        bn_sums_backward_ref,
-        bn_sums_ref,
-    )
-
-    s1, s2 = bn_sums(x)
-    torch.cuda.synchronize()
-    r1, r2 = bn_sums_ref(x)
-    axes = (0,) + tuple(range(2, x.dim()))
-    scale1 = x.float().abs().sum(axes).clamp_min(1e-30)
-    rel1 = float(((s1 - r1).abs() / scale1).max())
-    rel2 = float(((s2 - r2).abs() / r2.clamp_min(1e-30)).max())
-    err = max(float((s1 - r1).abs().max()), float((s2 - r2).abs().max()))
-    dx = bn_sums_backward(x, g1, g2)
-    torch.cuda.synchronize()
-    bwd_err = float((dx.float() - bn_sums_backward_ref(x, g1, g2).float()
-                     ).abs().max())
-    return rel1, rel2, err, bwd_err, dx
-
-
-def hold_bn_inputs(what: str, inputs) -> str:
-    """K2 and K2b on each BatchNorm input that a path gave them, at the
-    path's shapes and type, against their plain versions with
-    ``bn_errors``' tolerances; returns the line to print."""
-    import torch
-
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    worst_rel, worst_bwd = 0.0, 0.0
-    for i, x in enumerate(inputs):
-        c = x.shape[1]
-        g1 = torch.randn(c, generator=gen, device="cuda")
-        g2 = torch.randn(c, generator=gen, device="cuda")
-        rel1, rel2, _, bwd_err, _ = bn_errors(x, g1, g2)
-        where = f"{what}'s BatchNorm input {i} {tuple(x.shape)} {x.dtype}"
-        check(rel1 <= 1e-5 and rel2 <= 1e-5,
-              f"K2 on {where}: relative errors {rel1}, {rel2}")
-        check(bwd_err == 0.0,
-              f"K2b on {where}: differs from the plain version by {bwd_err}")
-        worst_rel = max(worst_rel, rel1, rel2)
-        worst_bwd = max(worst_bwd, bwd_err)
-    types = sorted({str(x.dtype).removeprefix("torch.") for x in inputs})
-    return (f"K2 and K2b on {what}'s {len(inputs)} BatchNorm inputs "
-            f"({', '.join(types)}; C {min(x.shape[1] for x in inputs)}-"
-            f"{max(x.shape[1] for x in inputs)}) against their plain "
-            f"versions: K2 relative error at most {worst_rel:.3g}, K2b "
-            f"{worst_bwd} from the plain version")
+    by_bytes = (nbytes / roofline.HBM_BYTES_PER_S
+                >= flops / roofline.F32_FLOPS)
+    return (roofline.bound_s(nbytes, flops) * 1e3,
+            "bytes" if by_bytes else "operations")
 
 
 def bn_kernel_phase():
-    """K2 and K2b against the plain version and its autograd on the card, in
-    the working type; returns their records, at the largest shape."""
+    """K2's and K2b's rows of the kernel table at the train step's largest
+    BatchNorm input, (16, 64, 256, 256) bf16, beside the plain versions,
+    ``torch.batch_norm_stats`` and ``torch.addcmul`` (K2b's function as one
+    call, g1 and g2 cast to bf16)."""
     import torch
 
+    from benchmark import roofline
     from mmhand_torch.ops.bn_stats import (
         bn_sums,
         bn_sums_backward,
@@ -623,104 +332,59 @@ def bn_kernel_phase():
     )
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    records = []
-    for shape, dtype in BN_SHAPES:
-        x = (torch.randn(shape, generator=gen, device="cuda") * 1.5 + 0.3
-             ).to(getattr(torch, dtype)).contiguous(
-                 memory_format=torch.channels_last)
-        c = shape[1]
-        g1 = torch.randn(c, generator=gen, device="cuda")
-        g2 = torch.randn(c, generator=gen, device="cuda")
-        rel1, rel2, err, bwd_err, dx = bn_errors(x, g1, g2)
-        check(rel1 <= 1e-5 and rel2 <= 1e-5,
-              f"K2 at {shape} {dtype}: relative errors {rel1}, {rel2}")
-        check(dx.dtype == x.dtype and dx.shape == x.shape
-              and dx.is_contiguous(memory_format=torch.channels_last),
-              f"K2b output {dx.dtype} {tuple(dx.shape)}")
-        check(bwd_err == 0.0, f"K2b differs from the plain version by {bwd_err}")
-        # autograd of the plain sums adds 2 g2 x as g2 x + g2 x: one
-        # rounding of the working type apart, at most
-        xr = x.detach().requires_grad_()
-        torch.autograd.backward(bn_sums_ref(xr), (g1, g2))
-        eps = torch.finfo(x.dtype).eps
-        tol = eps * (g1.abs().view(1, -1, 1, 1)
-                     + 2 * (g2.view(1, -1, 1, 1) * x.float()).abs()) + 1e-30
-        excess = float(((dx.float() - xr.grad.float()).abs() - tol).max())
-        check(excess <= 0.0, "K2b differs from autograd beyond one rounding")
-        del xr
-
-        ms = cuda_ms(lambda: bn_sums(x))
-        plain_ms = cuda_ms(lambda: bn_sums_ref(x))
-        library_ms = cuda_ms(lambda: torch.batch_norm_stats(x, 1e-5))
-        bwd_ms = cuda_ms(lambda: bn_sums_backward(x, g1, g2))
-        bwd_plain_ms = cuda_ms(lambda: bn_sums_backward_ref(x, g1, g2))
-        # K2b's function as one PyTorch call, g1 and g2 in x's type
-        g1x = g1.to(x.dtype).view(1, c, 1, 1)
-        g2x = g2.to(x.dtype).view(1, c, 1, 1)
-        bwd_library_ms = cuda_ms(lambda: torch.addcmul(g1x, g2x, x, value=2))
-        nbytes = x.numel() * x.element_size()
-        k2_bound, k2_by = bound(nbytes + 2 * c * 4, 3 * x.numel())
-        k2b_bound, k2b_by = bound(2 * nbytes + 2 * c * 4, 2 * x.numel())
-        print(f"K2 bn_sums {shape} {dtype}: rel err {rel1:.3g}/{rel2:.3g}, "
-              f"max_abs_err {err}; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms, torch.batch_norm_stats {library_ms:.4f} ms, bound "
-              f"{k2_bound:.4f} ms ({k2_by})")
-        print(f"K2b bn_sums_backward {shape} {dtype}: max_abs_err {bwd_err} "
-              f"against the plain version; kernel {bwd_ms:.4f} ms, plain "
-              f"{bwd_plain_ms:.4f} ms, torch.addcmul {bwd_library_ms:.4f} "
-              f"ms, bound {k2b_bound:.4f} ms ({k2b_by})")
-        if not records:
-            device_ms = kernel_device_ms(lambda: bn_sums(x), K2_KERNELS)
-            bwd_device_ms = kernel_device_ms(
-                lambda: bn_sums_backward(x, g1, g2), K2B_KERNELS)
-            addcmul_device_ms = kernel_device_ms(
-                lambda: torch.addcmul(g1x, g2x, x, value=2),
-                ("addcmul", "elementwise"))
-            lib_err = float((torch.addcmul(g1x, g2x, x, value=2).float()
-                             - dx.float()).abs().max())
-            print(f"K2 / K2b at {shape}: {device_ms:.4f} / {bwd_device_ms:.4f} "
-                  f"ms of device time per call (profiler); torch.addcmul "
-                  f"(K2b's function, g1 and g2 cast to {dtype}) "
-                  f"{addcmul_device_ms:.4f} ms of device time, "
-                  f"{bwd_library_ms:.4f} ms by CUDA events, against K2b's "
-                  f"{bwd_ms:.4f} ms; it differs from K2b by up to {lib_err} "
-                  f"(g1 and g2 rounded to {dtype})")
-            records = [
-                {"name": "bn_sums", "route": "cuda", "source": BN_SOURCE,
-                 "replaces": K2_REPLACES, "max_abs_err": err,
-                 "max_rel_err": max(rel1, rel2), "ms": ms,
-                 "plain_ms": plain_ms, "bound_ms": k2_bound,
-                 "bound_by": k2_by, "library_ms": library_ms,
-                 "device_ms": device_ms, "skipped_share": None},
-                {"name": "bn_sums_backward", "route": "cuda",
-                 "source": BN_SOURCE, "replaces": K2B_REPLACES,
-                 "max_abs_err": bwd_err, "max_rel_err": None,
-                 "ms": bwd_ms,
-                 "plain_ms": bwd_plain_ms, "bound_ms": k2b_bound,
-                 "bound_by": k2b_by, "library_ms": bwd_library_ms,
-                 "device_ms": bwd_device_ms, "skipped_share": None}]
-        del x, dx
-
-    edges = []
-    for shape, dtype, offset in BN_EDGE_SHAPES:
-        layout = (torch.channels_last if len(shape) == 4
-                  else torch.channels_last_3d)
-        big = (torch.randn(shape, generator=gen, device="cuda") * 1.5 + 0.3
-               ).to(getattr(torch, dtype)).contiguous(memory_format=layout)
-        edges.append(big[offset:])
-        check(edges[-1].is_contiguous(memory_format=layout)
-              and bool(edges[-1].data_ptr() % 16) == bool(offset),
-              f"edge case {shape} {dtype} {offset}")
-    print(hold_bn_inputs("K2's edge cases (C 1, 2, 3, 5, 21 with N mod k "
-                         "!= 0; unaligned bases, one element)", edges))
-
-    raised = False
-    try:
-        bn_sums(torch.zeros(2, 8, 4, 4, device="cuda"))
-    except ValueError:
-        raised = True
-    check(raised, "K2 took a tensor that is not channels_last")
-    return records
+    shape, c = GAN_BN_SITES[0][0], GAN_BN_SITES[0][0][1]
+    x = (torch.randn(shape, generator=gen, device="cuda") * 1.5 + 0.3
+         ).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    g1 = torch.randn(c, generator=gen, device="cuda")
+    g2 = torch.randn(c, generator=gen, device="cuda")
+    g1x = g1.to(x.dtype).view(1, c, 1, 1)
+    g2x = g2.to(x.dtype).view(1, c, 1, 1)
+    ms = cuda_ms(lambda: bn_sums(x))
+    plain_ms = cuda_ms(lambda: bn_sums_ref(x))
+    library_ms = cuda_ms(lambda: torch.batch_norm_stats(x, 1e-5))
+    device_ms = kernel_device_ms(lambda: bn_sums(x), K2_KERNELS)
+    bwd_ms = cuda_ms(lambda: bn_sums_backward(x, g1, g2))
+    bwd_plain_ms = cuda_ms(lambda: bn_sums_backward_ref(x, g1, g2))
+    bwd_library_ms = cuda_ms(lambda: torch.addcmul(g1x, g2x, x, value=2))
+    bwd_device_ms = kernel_device_ms(lambda: bn_sums_backward(x, g1, g2),
+                                     K2B_KERNELS)
+    addcmul_device_ms = kernel_device_ms(
+        lambda: torch.addcmul(g1x, g2x, x, value=2),
+        ("addcmul", "elementwise"))
+    # K2 sums in f32 in another order than the plain version: held at 1e-5
+    # of sum |x| and sum x^2, which bound any order's rounding; K2b is the
+    # plain formula in the same order, so bit for bit
+    (s1, s2), (r1, r2) = bn_sums(x), bn_sums_ref(x)
+    rel = max(float(((s1 - r1).abs() / x.float().abs().sum((0, 2, 3))).max()),
+              float(((s2 - r2).abs() / r2).max()))
+    err = max(float((s1 - r1).abs().max()), float((s2 - r2).abs().max()))
+    check(rel <= 1e-5, f"K2 {shape}: relative error {rel}")
+    check(torch.equal(bn_sums_backward(x, g1, g2),
+                      bn_sums_backward_ref(x, g1, g2)),
+          f"K2b {shape}: differs from the plain version")
+    k2_bound = roofline.k2_bound_s(x.numel(), x.element_size(), c) * 1e3
+    k2b_bound = roofline.k2b_bound_s(x.numel(), x.element_size(), c) * 1e3
+    print(f"K2 bn_sums {shape} bf16: kernel {ms:.4f} ms ({device_ms:.4f} ms "
+          f"of device time), plain {plain_ms:.4f} ms (relative error "
+          f"{rel:.3g}), torch.batch_norm_stats {library_ms:.4f} ms, bound "
+          f"{k2_bound:.4f} ms (bytes)")
+    print(f"K2b bn_sums_backward {shape} bf16: kernel {bwd_ms:.4f} ms "
+          f"({bwd_device_ms:.4f} ms of device time), plain {bwd_plain_ms:.4f} "
+          f"ms (bit for bit), torch.addcmul {bwd_library_ms:.4f} ms "
+          f"({addcmul_device_ms:.4f} ms of device time), bound "
+          f"{k2b_bound:.4f} ms (bytes)")
+    return [{"name": "bn_sums", "route": "cuda", "source": BN_SOURCE,
+             "replaces": K2_REPLACES, "max_abs_err": err, "max_rel_err": rel,
+             "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": k2_bound, "bound_by": "bytes",
+             "library_ms": library_ms, "device_ms": device_ms,
+             "skipped_share": None},
+            {"name": "bn_sums_backward", "route": "cuda", "source": BN_SOURCE,
+             "replaces": K2B_REPLACES, "max_abs_err": 0.0,
+             "max_rel_err": None, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+             "bound_ms": k2b_bound, "bound_by": "bytes",
+             "library_ms": bwd_library_ms, "device_ms": bwd_device_ms,
+             "skipped_share": None}]
 
 
 def k2_split_ms(fns) -> dict:
@@ -729,6 +393,8 @@ def k2_split_ms(fns) -> dict:
     over the calls ``fns``; {} when the trace holds none (not measured)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from benchmark.trace import pad_trace_start
 
     fns[0]()
     torch.cuda.synchronize()
@@ -796,6 +462,7 @@ def bn_site_phase(rounds: int = 2) -> dict:
     Returns the last round's K2 milliseconds by site."""
     import torch
 
+    from benchmark import roofline
     from mmhand_torch.ops.bn_stats import bn_sums
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -814,8 +481,8 @@ def bn_site_phase(rounds: int = 2) -> dict:
                 for i in range(GRAPH_CALLS)]
 
     def k2_bound(x):
-        return bound(x.numel() * x.element_size() + 2 * x.shape[1] * 4,
-                     3 * x.numel())[0]
+        return roofline.k2_bound_s(x.numel(), x.element_size(),
+                                   x.shape[1]) * 1e3
 
     sites = [(f"GAN x{calls}", shape, torch.bfloat16, calls)
              for shape, calls in GAN_BN_SITES]
@@ -892,14 +559,11 @@ def bn_apply_bounds(x) -> tuple[float, float]:
             bound(3 * n * e + 7 * c * 4, 5 * n)[0])
 
 
-def bn_apply_errors(x, dy, mean, mean_sq, weight, bias) -> dict:
+def bn_apply_errors(x, dy, mean, mean_sq, weight, bias, eps) -> dict:
     """The normalize's kernels on ``x`` against the plain version on the
-    card.  ``rel``: the relative errors, of y and dx against the largest
-    |value| of the plain version's, and of the four per-channel gradients
-    against the sums of |terms| they come from, as K2's.  ``share``: each
-    error as a share of its tolerance (<= 1 passes): two roundings of the
-    working type for y and dx; 1e-5 of the sums of |terms| plus 8 f32
-    roundings of the value for the gradients."""
+    card: the relative errors of y and dx, against the plain version's
+    largest |value|, and of the four per-channel gradients, against the
+    sums of |terms| they come from (K2's rule: f32 sums in another order)."""
     import torch
 
     from mmhand_torch.ops.bn_stats import (
@@ -909,40 +573,23 @@ def bn_apply_errors(x, dy, mean, mean_sq, weight, bias) -> dict:
         bn_apply_ref,
     )
 
-    eps = 1e-5
-    y = bn_apply_forward(x, mean, mean_sq, weight, bias, eps)
+    y = bn_apply_forward(x, mean, mean_sq, weight, bias, eps).float()
     got = bn_apply_backward(dy, x, mean, mean_sq, weight, eps)
-    torch.cuda.synchronize()
-    unit = torch.finfo(x.dtype).eps
-    f32 = torch.finfo(torch.float32).eps
-    ch = (1, -1) + (1,) * (x.dim() - 2)
-    r = torch.rsqrt(torch.clamp(mean_sq - mean * mean, min=0.0) + eps)
-    scale = (r * weight).view(ch)
-    g, xm = dy.float(), x.float() - mean.view(ch)
     y_ref = bn_apply_ref(x, mean, mean_sq, weight, bias, eps).float()
     want = bn_apply_backward_ref(dy, x, mean, mean_sq, weight, eps)
-    y_err = (y.float() - y_ref).abs()
-    dx_err = (got[0].float() - want[0].float()).abs()
-    axes = (0,) + tuple(range(2, x.dim()))
-    abs_dy, abs_b = g.abs().sum(axes), (g * xm).abs().sum(axes)
+    axes, ch = (0,) + tuple(range(2, x.dim())), (1, -1) + (1,) * (x.dim() - 2)
+    r = torch.rsqrt(torch.clamp(mean_sq - mean * mean, min=0.0) + eps)
+    g = dy.float()
+    abs_dy = g.abs().sum(axes)
+    abs_b = (g * (x.float() - mean.view(ch))).abs().sum(axes)
     d_var = 0.5 * weight.abs() * r ** 3
     terms = ((r * weight).abs() * abs_dy + 2 * mean.abs() * d_var * abs_b,
              d_var * abs_b, r * abs_b, abs_dy)
-    grad_errs = [(a - b).abs() for a, b in zip(got[1:], want[1:])]
-    rel = {"y": float(y_err.max() / y_ref.abs().max()),
-           "dx": float(dx_err.max() / want[0].float().abs().max()),
-           "gradients": max(float((e / (t + 1e-30)).max())
-                            for e, t in zip(grad_errs, terms))}
-    share = {"y": float((y_err / (2 * unit * ((xm * scale).abs()
-                                              + bias.view(ch).abs())
-                                  + 1e-30)).max()),
-             "dx": float((dx_err / (2 * unit * (g * scale).abs()
-                                    + 1e-30)).max()),
-             "gradients": max(float((e / (1e-5 * t + 8 * f32 * b.abs()
-                                          + 1e-30)).max())
-                              for e, t, b in zip(grad_errs, terms,
-                                                 want[1:]))}
-    return {"rel": rel, "share": share}
+    dx, dx_ref = got[0].float(), want[0].float()
+    return {"y": float((y - y_ref).abs().max() / y_ref.abs().max()),
+            "dx": float((dx - dx_ref).abs().max() / dx_ref.abs().max()),
+            "gradients": max(float(((a - b).abs() / t).max())
+                             for a, b, t in zip(got[1:], want[1:], terms))}
 
 
 def device_launches(fn) -> int:
@@ -952,6 +599,8 @@ def device_launches(fn) -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from benchmark.trace import PAD_KERNEL, pad_trace_start
+
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -960,27 +609,23 @@ def device_launches(fn) -> int:
         torch.cuda.synchronize()
     return sum(ev.count for ev in prof.key_averages()
                if ev.device_type == DeviceType.CUDA
-               and "spin_kernel" not in ev.key)
+               and PAD_KERNEL not in ev.key)
 
 
 def bn_apply_phase() -> list:
     """bn_apply_kernel and bn_apply_backward_kernel (the train-mode
     normalize) at the GAN step's four site shapes in bf16, the largest also
     in f16 and f32, and the MSRA/V2V group's C=1, C=21 and largest 5-D
-    sites in f32: held against the plain version on the card
-    (``bn_apply_errors``), then timed by ``graph_ms`` over copies past the
-    L2 beside the profiler's device time, the bound, the plain version's
-    CUDA-event time, and torch's own BatchNorm kernels doing the same work
+    sites in f32, timed by ``graph_ms`` over copies past the L2 beside the
+    profiler's device time, the bound, the plain version's CUDA-event time,
+    and torch's own BatchNorm kernels doing the same work
     (``torch.batch_norm_elemt`` forward; ``batch_norm_backward_reduce``, a
     multiply for dx and the per-channel ops backward), by graph and by CUDA
-    events with their launches; and the replaced op sequence (the f32
-    normalize and autograd's backward of it) against ``bn_apply`` forward
-    and backward, both by CUDA events; summed per GAN step over its 101
-    calls.  Returns the two kernels' records at the largest site."""
+    events with their launches; summed per GAN step over its 101 calls.
+    Returns the two kernels' records at the largest site."""
     import torch
 
     from mmhand_torch.ops.bn_stats import (
-        bn_apply,
         bn_apply_backward,
         bn_apply_backward_ref,
         bn_apply_forward,
@@ -1005,23 +650,6 @@ def bn_apply_phase() -> list:
         weight = 1 + 0.02 * torch.randn(shape[1], generator=gen, device="cuda")
         bias = 0.1 * torch.randn(shape[1], generator=gen, device="cuda")
         return xs, dys, (s1 / n, s2 / n, weight, bias)
-
-    def replaced(x, dy, stats):
-        """The op sequence bn_apply replaced, forward and backward."""
-        mean, mean_sq, weight, bias = (t.detach().requires_grad_()
-                                       for t in stats)
-        x = x.detach().requires_grad_()
-        ch = (1, -1) + (1,) * (x.dim() - 2)
-        var = torch.clamp(mean_sq - mean * mean, min=0.0)
-        scale = torch.rsqrt(var + eps) * weight
-        y = ((x.to(torch.float32) - mean.view(ch)) * scale.view(ch)
-             + bias.view(ch)).to(x.dtype)
-        y.backward(dy)
-
-    def through_bn_apply(x, dy, stats):
-        leaves = [t.detach().requires_grad_() for t in stats]
-        x = x.detach().requires_grad_()
-        bn_apply(x, *leaves, eps).backward(dy)
 
     def library_forward(x, stats):
         """torch's BatchNorm kernel for the normalize: y and invstd."""
@@ -1055,25 +683,13 @@ def bn_apply_phase() -> list:
     sites += [("MSRA/V2V", shape, torch.float32, 0)
               for shape in MSRA_BN_TIMED[:4:2] + MSRA_BN_TIMED[3:]]
     step = {k: 0.0 for k in ("forward", "backward", "bound", "library",
-                             "eager", "library_eager", "replaced",
-                             "bn_apply")}
+                             "eager", "library_eager")}
     records = []
     for what, shape, dtype, calls in sites:
         nbytes = math.prod(shape) * torch.finfo(dtype).bits // 8
         xs, dys, stats = case(shape, dtype,
                               min(GRAPH_CALLS, math.ceil(L2_BYTES / nbytes) + 1))
         x, dy = xs[0], dys[0]
-        errors = bn_apply_errors(x, dy, *stats)
-        check(max(errors["share"].values()) <= 1.0,
-              f"bn_apply at {shape} {dtype}: error shares {errors['share']}")
-        lib_y = library_forward(x, stats).float()
-        lib_dx = library_backward(x, dy, stats)[0].float()
-        y_ref = bn_apply_ref(x, *stats, eps).float()
-        dx_ref = bn_apply_backward_ref(dy, x, *stats[:3], eps)[0].float()
-        lib_rel = (float((lib_y - y_ref).abs().max() / y_ref.abs().max()),
-                   float((lib_dx - dx_ref).abs().max()
-                         / dx_ref.abs().max()))
-        del lib_y, lib_dx, y_ref, dx_ref
         pick = [(xs[i % len(xs)], dys[i % len(xs)])
                 for i in range(GRAPH_CALLS)]
         fwd = [functools.partial(bn_apply_forward, a, *stats, eps)
@@ -1102,20 +718,13 @@ def bn_apply_phase() -> list:
             bn_apply_backward(dy, x, *stats[:3], eps)))
         lib_n = device_launches(lambda: (library_forward(x, stats),
                                          library_backward(x, dy, stats)))
-        old = cuda_ms(lambda: replaced(x, dy, stats), iters=5)
-        new = cuda_ms(lambda: through_bn_apply(x, dy, stats), iters=5)
         for k, v in (("forward", fwd_ms), ("backward", bwd_ms),
                      ("bound", fwd_bound + bwd_bound), ("library", sum(lib_ms)),
-                     ("eager", eager), ("library_eager", lib_eager),
-                     ("replaced", old), ("bn_apply", new)):
+                     ("eager", eager), ("library_eager", lib_eager)):
             step[k] += calls * v
-        rel, share = errors["rel"], errors["share"]
         print(f"bn_apply {what} {shape} {str(dtype).removeprefix('torch.')} "
-              f"({nbytes / 1e6:.1f} MB, {len(xs)} copies): rel err y "
-              f"{rel['y']:.3g}, dx {rel['dx']:.3g}, gradients "
-              f"{rel['gradients']:.3g} (shares of the tolerance "
-              f"{share['y']:.3g}, {share['dx']:.3g}, "
-              f"{share['gradients']:.3g}); forward {fwd_ms:.4f} ms (graph; "
+              f"({nbytes / 1e6:.1f} MB, {len(xs)} copies): forward "
+              f"{fwd_ms:.4f} ms (graph; "
               f"profiler {fwd_dev:.4f}), bound {fwd_bound:.4f} ms "
               f"({100 * fwd_bound / fwd_ms:.1f}%), plain {plain:.4f} ms; "
               f"backward {bwd_ms:.4f} ms (graph; profiler {bwd_dev:.4f}), "
@@ -1123,11 +732,16 @@ def bn_apply_phase() -> list:
               f"plain {plain_bwd:.4f} ms; forward and backward: kernels "
               f"{fwd_ms + bwd_ms:.4f} ms (graph), {eager:.4f} ms eager, "
               f"{ours_n} launches; torch's BatchNorm kernels {lib_ms[0]:.4f} + "
-              f"{lib_ms[1]:.4f} ms (graph), {lib_eager:.4f} ms eager, {lib_n} launches, rel err "
-              f"y {lib_rel[0]:.3g}, dx {lib_rel[1]:.3g}; by autograd: "
-              f"replaced op sequence {old:.4f} ms, bn_apply {new:.4f} ms "
-              f"(CUDA events)")
+              f"{lib_ms[1]:.4f} ms (graph), {lib_eager:.4f} ms eager, "
+              f"{lib_n} launches")
         if not records:
+            rel = bn_apply_errors(x, dy, *stats, eps)
+            unit = torch.finfo(dtype).eps
+            check(rel["y"] <= 4 * unit and rel["dx"] <= 4 * unit
+                  and rel["gradients"] <= 2e-5,
+                  f"bn_apply {shape}: relative errors {rel}")
+            print(f"bn_apply {shape} {dtype} against the plain version: "
+                  f"relative errors {rel}")
             records = [
                 {"name": "bn_apply", "route": "cuda", "source": BN_SOURCE,
                  "replaces": None, "max_abs_err": None,
@@ -1148,9 +762,7 @@ def bn_apply_phase() -> list:
           f"({100 * step['bound'] / (step['forward'] + step['backward']):.1f}%)"
           f"; torch's BatchNorm kernels {step['library']:.4f} ms (graph); "
           f"eager with launches: kernels {step['eager']:.4f} ms, torch's "
-          f"{step['library_eager']:.4f} ms; forward and backward by autograd "
-          f"(CUDA events): replaced op sequence {step['replaced']:.4f} ms, "
-          f"bn_apply {step['bn_apply']:.4f} ms")
+          f"{step['library_eager']:.4f} ms")
     reset_launches()  # the kernels ran here without K2 beside them
     return records
 
@@ -1188,123 +800,6 @@ def calibrate(generator, batch):
     generator.eval()
 
 
-def small_reference_phase():
-    """The port on the card against the port on the CPU, float32, TF32 off."""
-    import torch
-
-    from mmhand_torch.config import Config, DataConfig, ModelConfig, PrecisionConfig
-    from mmhand_torch.data import make_prepare_batch
-    from mmhand_torch.train.state import build_generator
-    from mmhand_torch.train.step import make_eval_step
-
-    cfg = Config(model=ModelConfig(fine_size=32, ngf=8, g_n_blocks=2),
-                 data=DataConfig(dataset="synthetic", seed=SEED),
-                 precision=PrecisionConfig(compute_dtype="float32"),
-                 is_train=False)
-    raw = raw_batch(cfg, 4)
-    on_cpu = make_prepare_batch(6.0, "cpu")(raw)
-    on_card = make_prepare_batch(6.0, "cuda")(raw)
-    # torch on CUDA divides by a Python scalar as a multiply by its
-    # reciprocal, the CPU divides: a last-bit difference, 2 ulps at most
-    for k in ("H1", "D1", "H2", "D2"):
-        err = float((on_card[k].cpu() - on_cpu[k]).abs().max())
-        check(err <= 2.5e-7, f"prepare {k} differs by {err}")
-    for k, src in (("P1", "src_uv"), ("P2", "tgt_uv")):
-        uv = torch.from_numpy(raw[src]).cuda()
-        err, _ = heatmap_error(on_card[k], on_cpu[k].cuda(), uv, 32, 32, 6.0)
-        check(err <= 1e-6, f"prepare {k} differs by {err}")
-
-    g_cpu = build_generator(cfg, "cpu", seed=SEED)
-    calibrate(g_cpu, on_cpu)
-    g_card = build_generator(cfg, "cuda", seed=SEED)
-    g_card.load_state_dict(g_cpu.state_dict())
-    want = make_eval_step(g_cpu)(on_cpu)
-    with tf32_off():
-        got = make_eval_step(g_card)(on_card).cpu()
-    err = float((got - want).abs().max())
-    # cuDNN and the CPU sum the taps in another order; f32 with TF32 off
-    check(err <= 1e-4, f"toy generator on the card differs from the CPU by {err}")
-    print(f"small reference: prepare within 2 ulps, toy generator "
-          f"max_abs_err {err}")
-
-
-def params_agree(name: str, a: dict, b: dict, updates: int, lr: float) -> str:
-    """Two state_dicts of one network after ``updates`` Adam updates each: at
-    most 0.5% of its elements outside rtol 1e-3 / atol 2e-5 (running
-    statistics atol 1e-5), none more than 2 lr per update apart.  Adam
-    divides each gradient by its own magnitude, so an element whose
-    gradient is near zero takes an update that f32 rounding decides
-    (tests/test_torch_train.py).  Returns a summary."""
-    outside = total = 0
-    worst = 0.0
-    for k, v in b.items():
-        if k.endswith("num_batches_tracked"):
-            continue
-        diff = (a[k].detach().cpu().float() - v.detach().cpu().float()).abs()
-        atol = 1e-5 if "running" in k else 2e-5
-        outside += int((diff > atol + 1e-3 * v.detach().cpu().abs()).sum())
-        total += v.numel()
-        worst = max(worst, float(diff.max()))
-    check(outside <= 0.005 * total and worst <= 2 * lr * updates,
-          f"{name}: {outside} of {total} elements differ, worst {worst}")
-    return f"{name} {outside}/{total} outside, max {worst:.3g}"
-
-
-def nets_agree(got, want, updates: int, lr: float) -> str:
-    """``params_agree`` for the three networks of two train systems."""
-    return "; ".join(params_agree(name, getattr(got, name).state_dict(),
-                                  getattr(want, name).state_dict(), updates,
-                                  lr)
-                     for name in ("generator", "d_pb", "d_pp"))
-
-
-def small_train_phase():
-    """The toy train step on the card against the CPU, from the same weights
-    and batches: float32, TF32 off, dropout off, pool 0, 2 steps."""
-    import warnings
-
-    from mmhand_torch.config import (
-        Config,
-        DataConfig,
-        ModelConfig,
-        OptimConfig,
-        PrecisionConfig,
-    )
-    from mmhand_torch.data import make_prepare_batch
-    from mmhand_torch.train.state import build_system
-    from mmhand_torch.train.step import make_train_step
-
-    cfg = Config(model=ModelConfig(fine_size=32, ngf=8, ndf=8, g_n_blocks=2,
-                                   n_layers_d=2, use_dropout_g=False,
-                                   use_dropout_d=False),
-                 optim=OptimConfig(pool_size=0),
-                 data=DataConfig(dataset="synthetic", seed=SEED),
-                 precision=PrecisionConfig(compute_dtype="float32"))
-    lr = cfg.optim.lr
-    raw = raw_batch(cfg, 4)
-    full = make_prepare_batch(6.0, "cpu")(raw)
-    batches = [{k: v[i:i + 2] for k, v in full.items()} for i in (0, 2)]
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")  # the random-VGG warning, twice
-        on_cpu = build_system(cfg, "cpu")
-        on_card = build_system(cfg, "cuda")
-    step_cpu, step_card = make_train_step(on_cpu), make_train_step(on_card)
-    worst = 0.0
-    with tf32_off():
-        for batch in batches:
-            want = step_cpu(batch, lr)
-            got = step_card({k: v.cuda() for k, v in batch.items()}, lr)
-            for k, v in want.items():
-                # losses: the tests' tolerance against JAX, rtol/atol 2e-4
-                err = abs(float(got[k]) - float(v))
-                check(err <= 2e-4 * (1 + abs(float(v))),
-                      f"toy step loss {k}: card {float(got[k])}, cpu {float(v)}")
-                worst = max(worst, err)
-    summary = nets_agree(on_card, on_cpu, len(batches), lr)
-    print(f"small train reference (2 steps, f32, TF32 off): losses within "
-          f"{worst:.3g}; {summary}")
-
-
 def slice_phase(tmp: Path):
     """The full-width generation path through aug.main; returns K1 launches."""
     import torch
@@ -1316,7 +811,7 @@ def slice_phase(tmp: Path):
     from mmhand_torch.train.state import build_generator
     from mmhand_torch.train.step import make_eval_step
     from mmhand_torch.utils.checkpoint import save_network
-    from mmhand_torch.utils.png import encode_png, read_png
+    from mmhand_torch.utils.png import read_png
 
     size, n_items, gen_batch = FULL["size"], FULL["n_items"], FULL["gen_batch"]
     cfg = Config(model=ModelConfig(fine_size=size, ngf=FULL["ngf"]),
@@ -1342,10 +837,8 @@ def slice_phase(tmp: Path):
     out = io.StringIO()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    start = time.perf_counter()
     with contextlib.redirect_stdout(out):
         written = aug.main(argv)
-    seconds = time.perf_counter() - start
     launches = kernel_launches()["gaussian_heatmaps"]
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     print(out.getvalue().strip())
@@ -1354,11 +847,10 @@ def slice_phase(tmp: Path):
           f"{written} written, {len(files)} PNGs on disk, {n_items} expected")
     check(launches == 2 * (n_items // gen_batch),
           f"K1 launched {launches} times in the slice")
-    rate = re.search(r"([0-9.]+) images/s after the first batch", out.getvalue())
-    check(rate is not None, "aug printed no steady rate")
-    print(f"slice: {written} fakes in {seconds:.3f} s, "
-          f"{float(rate.group(1))} images/s after the first batch, "
-          f"peak device memory {peak_gib:.2f} GiB, K1 launches {launches}")
+    check(re.search(r"([0-9.]+) images/s after the first batch",
+                    out.getvalue()) is not None, "aug printed no steady rate")
+    print(f"slice: {written} fakes, peak device memory {peak_gib:.2f} GiB, "
+          f"K1 launches {launches}")
 
     # what was written is the generator's output for that batch, finite
     eval_step = make_eval_step(g)
@@ -1383,134 +875,43 @@ def slice_phase(tmp: Path):
     check(max_err <= 0.25 and mean_err <= 0.02,
           f"bf16 vs f32: max {max_err}, mean {mean_err}")
     print(f"bf16 vs f32 (TF32 off): max_abs_err {max_err}, mean_abs_err {mean_err}")
-
-    # where a batch's time goes, one part at a time
-    prep_ms = cuda_ms(lambda: prepare(raw), iters=10)
-    gen_ms = cuda_ms(lambda: eval_step(batch), iters=10)
-    fetch_ms = cuda_ms(lambda: denormalize_image(fake).cpu(), iters=10)
-    start = time.perf_counter()
-    for i in range(gen_batch):
-        encode_png(u8[i])
-    png_ms = (time.perf_counter() - start) * 1e3
-    print(f"per batch of {gen_batch}: prepare {prep_ms:.3f} ms, generator "
-          f"{gen_ms:.3f} ms, denormalize+fetch {fetch_ms:.3f} ms (CUDA "
-          f"events); PNG encode {png_ms:.3f} ms (host clock)")
     return launches
 
 
-# the kernel of torch.cuda._sleep, which pad_trace_start launches
-PAD_KERNEL = "spin_kernel"
-
-
-def pad_trace_start() -> None:
-    """Launch and finish 32 short spin kernels at the start of a profiler
-    window.  Once the process has run a while, the H100's trace drops the
-    first ~10 device activities of a window (a UNet batch lost its
-    jointsmap_kernel, copy and normalize after 12-100 s of idle card); the
-    pad takes their place."""
-    import torch
-
-    for _ in range(32):
-        torch.cuda._sleep(1000)
-    torch.cuda.synchronize()
-
-
-def profile_step(fn, what: str, kernels: dict[str, tuple[str, ...]]):
-    """One call of ``fn`` under torch.profiler: the device time of the
-    port's kernels (label -> the names of its kernels; a kernel that two
-    labels name fails), of all kernels, and the device's busy share of the
-    window.  Returns (a report, {label: (ms, launches)}); a profiler that
-    yields no device time is reported, not failed, and gives {}."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+def profile_step(fn, what: str, kernels: dict[str, tuple[str, ...]]) -> str:
+    """One call of ``fn``, after a warm-up call, in a profiler window
+    (``benchmark.trace.profile_window``): the device time and launches of
+    the port's kernels (label -> the names of its kernels), of all
+    kernels, the device's busy share of the window and the top kernels.  A
+    profiler that yields no device time is reported, not failed."""
+    from benchmark.trace import Spans, profile_window
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        pad_trace_start()
-        start = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - start) * 1e3
-    sums = {k: [0.0, 0] for k in kernels}
-    total = 0.0
-    rows = []
-    for ev in prof.key_averages():
-        if (ev.device_type != torch.autograd.DeviceType.CUDA
-                or PAD_KERNEL in ev.key):
-            continue
-        us = getattr(ev, "self_device_time_total", 0.0)
-        labels = [k for k, names in kernels.items()
-                  if any(name in ev.key for name in names)]
-        check(len(labels) <= 1, f"{ev.key} counts under {labels}")
-        for label in labels:
-            sums[label][0] += us / 1e3
-            sums[label][1] += ev.count
-        if us:
-            rows.append((us / 1e3, ev.count, ev.key))
-            total += us / 1e3
-    if not total:
-        return (f"profiled {what}: no device time in the trace (not "
-                f"measured)", {})
-    top = "\n".join(f"  {ms:9.3f} ms {n:5d}x {key[:90]}"
-                    for ms, n, key in sorted(rows, reverse=True)[:12])
-    ours = "".join(f"{k} {ms:.4f} ms in {n} launches, "
-                   for k, (ms, n) in sums.items())
-    return (f"profiled {what}: {ours}all kernels {total:.3f} ms of "
-            f"{wall_ms:.3f} ms wall (device busy {100 * total / wall_ms:.1f}%); "
-            f"top kernels:\n{top}", {k: tuple(v) for k, v in sums.items()})
+    prof = profile_window(fn, 1, Spans())
+    if not prof.kernels:
+        return f"profiled {what}: no device time in the trace (not measured)"
+    ours = "".join(f"{k} {1e3 * sec:.4f} ms in {n} launches, " for k, (sec, n)
+                   in ((k, prof.kernel_s(*names)) for k, names in kernels.items()))
+    total = sum(sec for sec, _ in prof.kernels.values())
+    top = "\n".join(f"  {1e3 * sec:9.3f} ms {name[:90]}"
+                    for name, sec in prof.top_ops(12))
+    return (f"profiled {what}: {ours}all kernels {1e3 * total:.3f} ms of "
+            f"{1e3 * prof.window_s:.3f} ms wall (device busy "
+            f"{100 * prof.busy_s / prof.window_s:.1f}%); top kernels:\n{top}")
 
 
-def bn_step_bounds(step, batch, lr, sums: dict) -> str:
-    """K2's and K2b's bounds per train step: the sum over the step's
-    train-mode BatchNorm calls of each call's bound (K2 reads x, K2b reads x
-    and writes dx), beside their profiled device time per step."""
-    from mmhand_torch.models.layers import BatchNorm2d
-
-    sites = []
-
-    def record(module, args):
-        if module.training:
-            x = args[0]
-            sites.append((x.numel(), x.element_size(), x.shape[1]))
-
-    nets = (step.system.generator, step.system.d_pb, step.system.d_pp)
-    hooks = [m.register_forward_pre_hook(record) for net in nets
-             for m in net.modules() if isinstance(m, BatchNorm2d)]
-    try:
-        step(batch, lr)
-    finally:
-        for h in hooks:
-            h.remove()
-    check(len(sites) == BN_PER_STEP, f"{len(sites)} BatchNorm calls per step")
-    k2 = sum(bound(n * e + 2 * c * 4, 3 * n)[0] for n, e, c in sites)
-    k2b = sum(bound(2 * n * e + 2 * c * 4, 2 * n)[0] for n, e, c in sites)
-    gb = sum(n * e for n, e, _ in sites) / 1e9
-    line = (f"BatchNorm sites per train step: {len(sites)}, {gb:.3f} GB of "
-            f"inputs; bound per step K2 {k2:.4f} ms, K2b {k2b:.4f} ms")
-    for label, bound_ms in (("K2", k2), ("K2b", k2b)):
-        if label in sums:
-            ms, n = sums[label]
-            line += (f"; {label} {ms:.4f} ms of device time in {n} launches "
-                     f"(profiler), {100 * bound_ms / ms:.1f}% of its bound")
-    return line
-
-
-def train_slice_phase(tmp: Path) -> tuple[dict, float]:
+def train_slice_phase(tmp: Path) -> dict:
     """The full-width train step through scripts.train.main, then its
     checkpoint through aug.main; returns the kernels' launches in the train
-    run and one step's milliseconds by CUDA events."""
+    run."""
     import math
     import warnings
 
     import torch
 
-    from mmhand_torch.config import Config, DataConfig, ModelConfig
-    from mmhand_torch.data import make_prepare_batch
     from mmhand_torch.scripts import aug
     from mmhand_torch.scripts import train as train_script
     from mmhand_torch.train.state import build_system
-    from mmhand_torch.train.step import make_train_step
 
     steps, batch_size = TRAIN["steps"], TRAIN["batch"]
     size = FULL["size"]
@@ -1522,11 +923,9 @@ def train_slice_phase(tmp: Path) -> tuple[dict, float]:
     out = io.StringIO()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    start = time.perf_counter()
     with warnings.catch_warnings(), contextlib.redirect_stdout(out):
         warnings.simplefilter("ignore")  # the random-VGG warning
         result = train_script.main(argv)
-    seconds = time.perf_counter() - start
     launches = kernel_launches()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     print(out.getvalue().strip())
@@ -1538,9 +937,8 @@ def train_slice_phase(tmp: Path) -> tuple[dict, float]:
           and cfg.optim.pool_size == 50 and cfg.optim.dg_ratio == 1
           and cfg.loss.l1_type == "l1_plus_perL1", "flagship train config")
     check(result.steps == steps, f"{result.steps} steps taken")
-    per_step = BN_PER_STEP
-    check(launches["bn_sums"] == per_step * steps
-          and launches["bn_sums_backward"] == per_step * steps
+    check(launches["bn_sums"] == BN_PER_STEP * steps
+          and launches["bn_sums_backward"] == BN_PER_STEP * steps
           and launches["gaussian_heatmaps"] == 2 * steps,
           f"launches in the train slice: {launches}")
     lines = re.findall(r"\(epoch: \d+, iters: (\d+), time: [^)]*\) (.*)",
@@ -1552,6 +950,8 @@ def train_slice_phase(tmp: Path) -> tuple[dict, float]:
                               "perceptual", "D_PP", "D_PB"}
               and all(math.isfinite(float(v)) for v in values.values()),
               f"step {it} losses {values}")
+    check(result.images_per_sec is not None and result.images_per_sec > 0,
+          "train printed no steady rate")
 
     # every network moved from its initial weights, and the running
     # statistics of the discriminators moved from their init (0, 1)
@@ -1571,43 +971,8 @@ def train_slice_phase(tmp: Path) -> tuple[dict, float]:
     for net in ("netG", "netD_PB", "netD_PP"):
         check((ckpt / "train_smoke" / f"latest_net_{net}.pth").exists(),
               f"latest_net_{net}.pth not written")
-
-    # where one step's time goes, one phase at a time (CUDA events)
-    system = result.system
-    step = make_train_step(system)
-    lr = cfg.optim.lr
-    raw = raw_batch(cfg, batch_size)
-    prepare = make_prepare_batch(cfg.data.sigma, "cuda")
-    batch = prepare(raw)
-    fake, _ = step.g_phase(batch, lr)
-    h1, h2, p2 = batch["H1"], batch["H2"], batch["P2"]
-    real_pp, fake_pp = torch.cat([h2, h1], -1), torch.cat([fake, h1], -1)
-    real_pb, fake_pb = torch.cat([h2, p2], -1), torch.cat([fake, p2], -1)
-    times = {
-        "prepare": cuda_ms(lambda: prepare(raw), iters=5, warmup=1),
-        "G phase": cuda_ms(lambda: step.g_phase(batch, lr), iters=5, warmup=1),
-        "pool PP": cuda_ms(lambda: step.replay("pp", fake_pp), iters=5, warmup=1),
-        "D_PP phase": cuda_ms(lambda: step.d_phase("pp", real_pp, fake_pp, lr),
-                              iters=5, warmup=1),
-        "pool PB": cuda_ms(lambda: step.replay("pb", fake_pb), iters=5, warmup=1),
-        "D_PB phase": cuda_ms(lambda: step.d_phase("pb", real_pb, fake_pb, lr),
-                              iters=5, warmup=1),
-        "whole step": cuda_ms(lambda: step(batch, lr), iters=5, warmup=1),
-    }
-    report, sums = profile_step(
-        lambda: step(batch, lr), "train step",
-        {"K2": K2_KERNELS, "K2b": K2B_KERNELS, "bn_apply": BN_APPLY_KERNELS,
-         "bn_apply_backward": BN_APPLY_BWD_KERNELS})
-    print(report)
-    print(bn_step_bounds(step, batch, lr, sums))
-    rate = result.images_per_sec
-    check(rate is not None and rate > 0, "train printed no steady rate")
-    print(f"train slice: {steps} steps at batch {batch_size} in {seconds:.3f} s "
-          f"(build and cuDNN warm-up included), {rate} images/s after the "
-          f"first step, peak device memory {peak_gib:.2f} GiB, launches "
-          f"{launches}")
-    print("train step phases at batch %d (CUDA events, median of 5, ms): %s"
-          % (batch_size, ", ".join(f"{k} {v:.3f}" for k, v in times.items())))
+    print(f"train slice: {steps} steps at batch {batch_size}, peak device "
+          f"memory {peak_gib:.2f} GiB, launches {launches}")
 
     # the trained generator's checkpoint drives the generation path
     written = aug.main(["--dataset", "synthetic", "--fineSize", str(size),
@@ -1616,7 +981,7 @@ def train_slice_phase(tmp: Path) -> tuple[dict, float]:
                         "--checkpoints_dir", str(ckpt), "--name", "train_smoke",
                         "--dst", str(tmp / "train_fakes"), "--device", "cuda"])
     check(written == batch_size, f"aug wrote {written} fakes from the trained G")
-    return launches, times["whole step"]
+    return launches
 
 
 def kernel_launches() -> dict:
@@ -1758,8 +1123,7 @@ def same_state(got: dict, want: dict, where: str = "") -> int:
 def resume_phase(tmp: Path) -> dict:
     """Three flagship steps through scripts.train.main, a restore of the
     checkpoint they saved into a fresh system, three more through main with
-    --continue_train; then the toy 3 + 3 resumed run against the 6-step run
-    on the card.  Returns the kernels' launches in the two main runs."""
+    --continue_train.  Returns the kernels' launches in the two runs."""
     import math
     import warnings
 
@@ -1818,12 +1182,13 @@ def resume_phase(tmp: Path) -> dict:
           f"restored bit for bit; save {save_s:.3f} s, restore {restore_s:.3f} "
           f"s; the resumed run reached step {2 * RESUME_STEPS}; launches "
           f"{launches}")
-    toy_resume_check(tmp)
     return launches
 
 
-def toy_config(pool_size: int, dropout: bool = True,
-               padding: str = "reflect"):
+def toy_config():
+    """The dry run's toy GAN (``parallel.dryrun.toy_config``) in float32,
+    dropout off, pool 0: one step is then the same on any split of the
+    batch."""
     from mmhand_torch.config import (
         Config,
         DataConfig,
@@ -1833,114 +1198,11 @@ def toy_config(pool_size: int, dropout: bool = True,
     )
 
     return Config(model=ModelConfig(fine_size=32, ngf=8, ndf=8, g_n_blocks=2,
-                                    n_layers_d=2, use_dropout_g=dropout,
-                                    use_dropout_d=dropout,
-                                    padding_type=padding),
-                  optim=OptimConfig(pool_size=pool_size),
+                                    n_layers_d=2, use_dropout_g=False,
+                                    use_dropout_d=False),
+                  optim=OptimConfig(pool_size=0),
                   data=DataConfig(dataset="synthetic", seed=SEED),
                   precision=PrecisionConfig(compute_dtype="float32"))
-
-
-def toy_batches(n: int, batch: int, seed: int = SEED) -> list[dict]:
-    import numpy as np
-    import torch
-
-    rng = np.random.RandomState(seed)
-    return [{k: torch.from_numpy(rng.uniform(-1, 1, (batch, 32, 32, c)
-                                             ).astype(np.float32)).cuda()
-             for k, c in (("H1", 3), ("P1", 21), ("D1", 3), ("H2", 3),
-                          ("P2", 21), ("D2", 3))} for _ in range(n)]
-
-
-def state_gap(a, b) -> tuple[bool, float]:
-    """(every leaf equal, max |a - b| over the floating-point tensors) of two
-    state trees of one structure."""
-    import torch
-
-    if isinstance(b, dict):
-        gaps = [state_gap(a[k], b[k]) for k in b]
-        return (all(g[0] for g in gaps), max([g[1] for g in gaps], default=0.0))
-    if isinstance(b, (list, tuple)):
-        gaps = [state_gap(x, y) for x, y in zip(a, b)]
-        return (all(g[0] for g in gaps), max([g[1] for g in gaps], default=0.0))
-    if isinstance(b, torch.Tensor):
-        equal = torch.equal(a.cpu(), b.cpu())
-        if b.is_floating_point() and b.numel():
-            return equal, float((a.cpu().double() - b.cpu().double()).abs().max())
-        return equal, 0.0
-    return a == b, 0.0
-
-
-def toy_resume_check(tmp: Path) -> None:
-    """Toy size on the card, f32 with TF32 off, deterministic cuDNN and
-    torch's deterministic algorithms (warn only), dropout and pools on: 3
-    steps, a save, a fresh system restored, 3 more steps (resumed), against
-    6 steps without a break, twice (unbroken).  The random streams and the
-    step must match exactly; the rest must match bit for bit wherever two
-    unbroken runs do, and else within nets_agree's bound.  Prints the ops
-    torch names as having no deterministic CUDA implementation (the reflect
-    pad's backward sums with atomics)."""
-    import warnings
-
-    import torch
-
-    from mmhand_torch.train.state import build_system
-    from mmhand_torch.train.step import make_train_step
-    from mmhand_torch.utils.checkpoint import CheckpointManager
-
-    batches = toy_batches(6, 2)
-    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        for padding in ("zero", "reflect"):
-            cfg = toy_config(pool_size=4, padding=padding)
-            lr = cfg.optim.lr
-            ckpt = CheckpointManager(str(tmp / f"toy_{padding}"), "toy")
-            with tf32_off(), warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                runs = []
-                for _ in range(2):
-                    system = build_system(cfg, "cuda")
-                    step = make_train_step(system)
-                    runs.append(([step(b, lr) for b in batches], system))
-                system = build_system(cfg, "cuda")
-                step = make_train_step(system)
-                metrics = [step(b, lr) for b in batches[:3]]
-                ckpt.save(system, "latest")
-                system = build_system(cfg, "cuda")
-                ckpt.restore(system, "latest")
-                step = make_train_step(system)
-                metrics += [step(b, lr) for b in batches[3:]]
-            nondeterministic = sorted({
-                str(w.message).split(" does not have")[0] for w in caught
-                if "deterministic implementation" in str(w.message)})
-            (want, unbroken), (again, twice) = runs
-            rest = unbroken.state_dict()
-            got = system.state_dict()
-            check(got["step"] == rest["step"], "toy resume: step")
-            for key in ("rng_pool", "rng_cuda", "rng_cpu"):
-                check(torch.equal(got["rank"][key], rest["rank"][key]),
-                      f"toy resume {padding}: the {key} stream differs")
-            same, gap = state_gap((metrics, got), (want, rest))
-            same2, gap2 = state_gap((again, twice.state_dict()), (want, rest))
-            if same2:
-                check(same, f"toy resume {padding}: two unbroken runs agree bit "
-                            f"for bit, the resumed one differs by {gap}")
-            for m, w in zip(metrics, want):
-                for k, v in w.items():
-                    check(abs(float(m[k]) - float(v)) <= 2e-4 * (1 + abs(float(v))),
-                          f"toy resume {padding}: loss {k}")
-            summary = nets_agree(system, unbroken, 6, lr)
-            print(f"toy resume on the card ({padding} padding; f32, TF32 off, "
-                  f"deterministic algorithms, dropout, pool 4): resumed "
-                  f"against unbroken: bit for bit {same}, max |diff| {gap} "
-                  f"({summary}); unbroken against unbroken: bit for bit "
-                  f"{same2}, max |diff| {gap2}; ops without a deterministic "
-                  f"CUDA implementation: {nondeterministic}")
-    finally:
-        torch.use_deterministic_algorithms(False)
-        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
 
 
 def dp_worker(out: str) -> None:
@@ -1985,7 +1247,7 @@ def dp_worker(out: str) -> None:
         dist.destroy_process_group()
 
 
-def nccl_phase(tmp: Path, single_step_ms: float) -> dict:
+def nccl_phase(tmp: Path) -> dict:
     """The flagship DP path at world size 1 over NCCL, launched by
     torch.distributed.run; returns its kernels' launches."""
     import math
@@ -2010,9 +1272,9 @@ def nccl_phase(tmp: Path, single_step_ms: float) -> dict:
           f"NCCL world 1 launches {launches}")
     print(f"NCCL world size 1 (torchrun, {seconds:.1f} s with start-up): "
           f"{RESUME_STEPS} flagship steps, {r['images_per_sec']} images/s after "
-          f"the first; one step {r['step_ms']:.3f} ms by CUDA events against "
-          f"{single_step_ms:.3f} ms single-process; {r['all_reduces_per_step']} "
-          f"all-reduces per step; launches {launches}")
+          f"the first; one step {r['step_ms']:.3f} ms by CUDA events; "
+          f"{r['all_reduces_per_step']} all-reduces per step; launches "
+          f"{launches}")
     return launches
 
 
@@ -2045,7 +1307,7 @@ def gloo_legs(rank: int, world: int, distributed: bool) -> dict:
 
     from mmhand_torch.hand3d import make_hand3d_train_step
     from mmhand_torch.hpe import HPESystem, make_hpe_train_step
-    from mmhand_torch.parallel.dryrun import hand3d_batch, hpe_batch
+    from mmhand_torch.parallel.dryrun import hand3d_batch, hpe_batch, toy_batch
     from mmhand_torch.train.state import build_system
     from mmhand_torch.train.step import make_train_step
 
@@ -2054,14 +1316,12 @@ def gloo_legs(rank: int, world: int, distributed: bool) -> dict:
     def cuda(batch):
         return {k: torch.from_numpy(v[mine]).cuda() for k, v in batch.items()}
 
-    cfg = toy_config(pool_size=0, dropout=False)
+    cfg = toy_config()
     legs = {}
     with tf32_off(), warnings.catch_warnings():
         warnings.simplefilter("ignore")
         gan = build_system(cfg, "cuda", distributed=distributed)
-        full = toy_batches(1, 4)[0]
-        metrics = make_train_step(gan)({k: v[mine] for k, v in full.items()},
-                                       cfg.optim.lr)
+        metrics = make_train_step(gan)(cuda(toy_batch(4)), cfg.optim.lr)
         legs["gan"] = ({k: float(v) for k, v in metrics.items()},
                        {n: getattr(gan, n).state_dict()
                         for n in ("generator", "d_pb", "d_pp")})
@@ -2109,7 +1369,7 @@ def gloo_phase(tmp: Path) -> dict:
     import torch
 
     from mmhand_torch.hand3d.system import TRAIN_PARA_LIFTING
-    from mmhand_torch.parallel.dryrun import launch
+    from mmhand_torch.parallel.dryrun import launch, params_agree
 
     out = tmp / "gloo.pt"
     start = time.perf_counter()
@@ -2120,7 +1380,7 @@ def gloo_phase(tmp: Path) -> dict:
     start = time.perf_counter()
     want = gloo_legs(0, 1, False)
     single_s = time.perf_counter() - start
-    lrs = {"gan": toy_config(0).optim.lr, "hpe": hpe_toy_config().optim.lr,
+    lrs = {"gan": toy_config().optim.lr, "hpe": hpe_toy_config().optim.lr,
            "hand3d": TRAIN_PARA_LIFTING["lr"][0]}
     summary = []
     for leg, (metrics, nets) in want.items():
@@ -2128,8 +1388,12 @@ def gloo_phase(tmp: Path) -> dict:
         for k, v in metrics.items():
             check(abs(got_metrics[k] - v) <= 2e-4 * (1 + abs(v)),
                   f"gloo DP {leg} loss {k}: {got_metrics[k]} against {v}")
-        agree = "; ".join(params_agree(f"{leg} {n}", got_nets[n], sd, 1,
-                                       lrs[leg]) for n, sd in nets.items())
+        agree = []
+        for n, sd in nets.items():
+            ok, line = params_agree(got_nets[n], sd, 1, lrs[leg])
+            check(ok, f"gloo DP {leg} {n}: {line}")
+            agree.append(f"{leg} {n} {line}")
+        agree = "; ".join(agree)
         summary.append(f"{leg}: {got_metrics} against {metrics}; {agree}")
     print(f"two ranks on the card over gloo ({seconds:.1f} s with start-up; "
           f"the three single-process steps {single_s:.1f} s): one toy DP "
@@ -2199,61 +1463,6 @@ def longrun_phase(tmp: Path) -> dict:
     return {k: v + leg2.get(k, 0) for k, v in ssim_launches.items()}
 
 
-def jointsmap_case(name: str, batch: int, height: int, width: int):
-    """Hand-sized poses (uv, z on the CPU) or one of the edge cases of
-    tests/test_torch_cuda.py: crossing bones (occlusion), equal depths
-    (ties), zero-length bones, joints parked off the frame; then the cull's
-    degenerate cases: bones of length 1e-7 and 5e-7 (tiny), half_len at its
-    1e-3 floor (floor), NaN keypoints and depths (nan), long bones crossing
-    the frame (long), ellipses touching the warp tiles' edges (graze)."""
-    import numpy as np
-    import torch
-
-    rng = np.random.RandomState(SEED)
-    scale = np.array([width, height], np.float32)
-    uv = ((rng.uniform(0.3, 0.7, (batch, 1, 2))
-           + rng.normal(0, 0.18, (batch, 21, 2))) * scale).astype(np.float32)
-    z = (rng.uniform(300, 700, (batch, 21)) / 700 * 255).astype(np.float32)
-    if name == "occlusion":
-        uv[:] = -500.0
-        z[:] = 1.0e6
-        uv[:, 1], uv[:, 2] = [20, 128], [236, 128]
-        uv[:, 5], uv[:, 6] = [128, 20], [128, 236]
-        z[:, [1, 2]], z[:, [5, 6]] = 0.2, 0.8
-    elif name == "tie":
-        z[:] = 100.0
-    elif name == "zero_length":
-        uv[:, 2] = uv[:, 1]
-        uv[:, 18] = uv[:, 19] = uv[:, 20] = uv[:, 17]
-    elif name == "parked":
-        uv[:, 5:] = [-1000.0, 4000.0]
-    elif name == "tiny":
-        uv[:, 1], uv[:, 2] = [1e-7, 0.0], [0.0, 0.0]
-        uv[:, 5], uv[:, 6] = [2e-7, 3e-7], [5e-7, -1e-7]
-        z[:, [1, 2, 5, 6]] = 50.0
-    elif name == "floor":
-        uv[:, 9] = [width / 2, height / 2]
-        uv[:, 10] = uv[:, 9] + [1e-3, 0.0]
-        uv[:, 14] = [width / 4 + 0.5, height / 4]
-        uv[:, 15] = uv[:, 14] + [0.0, 2e-3]
-        z[:, [9, 10, 14, 15]] = 10.0
-    elif name == "nan":
-        uv[:, 3] = np.nan
-        uv[:, 7, 0] = np.nan
-        z[:, 12] = np.nan
-    elif name == "long":
-        uv[:, 17], uv[:, 18] = [-3000.0, 0.2 * height], [3000.0, 0.85 * height]
-        uv[:, 13], uv[:, 14] = [0.5 * width, -4000.0], [0.4 * width, 4000.0]
-        z[:, [13, 14, 17, 18]] = 20.0
-    elif name == "graze":
-        uv[:, 1], uv[:, 2] = [16.0, 40.0], [32.0, 40.0]
-        uv[:, 5], uv[:, 6] = [70.0, 24.0], [70.0, 48.0]
-        uv[:, 9], uv[:, 10] = [100.0, 35.0], [120.0, 35.0]
-        uv[:, 13], uv[:, 14] = [44.0, 60.0], [60.0, 76.0]
-        z[:, [1, 2, 5, 6, 9, 10, 13, 14]] = 30.0
-    return torch.from_numpy(uv), torch.from_numpy(z)
-
-
 def jointsmap_pairs(uv, z, height: int, width: int) -> tuple[int, int, int]:
     """K3's (pixel, bone) pairs on these inputs: all of them, those whose
     pixel its bone's rectangle does not rule out (what the inputs need), and
@@ -2288,6 +1497,8 @@ def kernel_device_ms(fn, names: tuple[str, ...], calls: int = 20) -> float:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from benchmark.trace import pad_trace_start
+
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2302,10 +1513,10 @@ def kernel_device_ms(fn, names: tuple[str, ...], calls: int = 20) -> float:
 
 
 def jointsmap_kernel_phase():
-    """K3 against generate_jointsmap_ref run on the CPU, bit for bit (the
-    plain version on the card multiplies by 1/5 where K3 and the CPU divide
-    by 5), on poses, edge and degenerate cases and the baselines' poses;
-    returns its record, at the baselines' batch."""
+    """K3's row of the kernel table on the baselines' evaluation batch (the
+    synthetic set's target poses at batch 8, 256 px, as
+    ``bench_baselines.jointsmap_condition`` gives them), with the share of
+    (pixel, bone) pairs its warp tiles skip."""
     import numpy as np
     import torch
 
@@ -2316,120 +1527,40 @@ def jointsmap_kernel_phase():
     cfg = Config(model=ModelConfig(fine_size=size),
                  data=DataConfig(dataset="synthetic"), is_train=False)
     raw = raw_batch(cfg, nb)
-    # bench_baselines.jointsmap_condition's inputs
-    main = (torch.from_numpy(raw["tgt_uv"]),
-            torch.from_numpy((np.asarray(raw["tgt_z"]) / 700.0 * 255.0
-                              ).astype(np.float32)))
-    record = {}
-    for name, batch, height, width in [("main path", nb, size, size)] + K3_SHAPES:
-        if name == "main path":
-            uv, z = main
-        else:
-            uv, z = jointsmap_case(name, batch, height, width)
-        uv_d, z_d = uv.cuda(), z.cuda()
-        got = generate_jointsmap(uv_d, z_d, height, width)
-        torch.cuda.synchronize()
-        want = generate_jointsmap_ref(uv, z, height, width)
-        check(got.shape == want.shape == (batch, height, width),
-              f"K3 shape {tuple(got.shape)}")
-        err = float((got.cpu() - want).abs().max())
-        check(err == 0.0, f"K3 {name} ({batch}, {height}, {width}) differs "
-                          f"from the plain version on the CPU by {err}")
-        on_card = generate_jointsmap_ref(uv_d, z_d, height, width).cpu()
-        flipped = int((on_card != want).sum())
-        pairs, near, run = jointsmap_pairs(uv, z, height, width)
-        line = (f"K3 generate_jointsmap {name} ({batch}, {height}, {width}): "
-                f"max_abs_err 0.0 against the CPU; the plain version on the "
-                f"card differs at {flipped} pixels; pairs {pairs}, not ruled "
-                f"out pixel by pixel {near}, run by the warp tiles {run} "
-                f"(skipped {1 - run / pairs:.4f})")
-        if name in ("main path", "poses") and height == size and batch == nb:
-            ms = cuda_ms(lambda: generate_jointsmap(uv_d, z_d, height, width))
-            device_ms = kernel_device_ms(
-                lambda: generate_jointsmap(uv_d, z_d, height, width),
-                K3_KERNELS)
-            plain_ms = cuda_ms(
-                lambda: generate_jointsmap_ref(uv_d, z_d, height, width))
-            io_bytes = got.numel() * 4 + uv.numel() * 4 + z.numel() * 4
-            # the exact test's 16 f32 operations, for the pairs whose pixel
-            # the bone's rectangle does not rule out; beside it, all pairs
-            k3_bound, k3_by = bound(io_bytes, K3_OPS_PER_PIXEL_BONE * near)
-            all_bound, _ = bound(io_bytes, K3_OPS_PER_PIXEL_BONE * pairs)
-            wrapper_us = host_us(
-                lambda: generate_jointsmap(uv_d[:1], z_d[:1], 8, 8))
-            line += (f"; kernel {ms:.4f} ms per call ({device_ms:.4f} ms of "
-                     f"device time, profiler; the wrapper's host work "
-                     f"{wrapper_us:.1f} us per call at (1, 8, 8)), plain "
-                     f"{plain_ms:.4f} ms, bound "
-                     f"{k3_bound:.4f} ms ({k3_by}; {all_bound:.4f} ms for all "
-                     f"pairs); no single PyTorch call computes the same "
-                     f"function")
-            if name == "main path":
-                skipped_share = 1 - run / pairs
-            else:
-                record = {"name": "generate_jointsmap", "route": "cuda",
-                          "source": "mmhand_torch/csrc/jointsmap.cu",
-                          "replaces": K3_REPLACES, "max_abs_err": err,
-                          "max_rel_err": None, "ms": ms, "plain_ms": plain_ms,
-                          "bound_ms": k3_bound, "bound_by": k3_by,
-                          "library_ms": None, "device_ms": device_ms,
-                          "skipped_share": skipped_share}
-        print(line)
-    return record
-
-
-def small_eval_phase():
-    """The evaluation modules on the card against the CPU at batch 2, in
-    float32 with TF32 off: the conditioning image (bit for bit), Inception
-    logits and pool features, per-image SSIM, Hpm2d heatmaps and Hpm3d z."""
-    import warnings
-
-    import numpy as np
-    import torch
-
-    from mmhand_torch.eval import Evaluator, HPEJudge
-    from mmhand_torch.eval.evaluator import full_fp32
-
-    size = FULL["size"]
-    uv, z = jointsmap_case("poses", 2, size, size)
-    xyz = torch.cat([uv, z[..., None]], -1)
-    cond = Evaluator.create_input_image(xyz.cuda(), size)
-    check(torch.equal(cond.cpu(), Evaluator.create_input_image(xyz, size)),
-          "create_input_image on the card differs from the CPU")
-
-    judge_size = 128  # the CPM nets at 256 px take seconds on the host
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")  # the random-weights warnings
-        on_cpu = Evaluator(judge=HPEJudge.random_init(judge_size, device="cpu"),
-                           device="cpu")
-        on_card = Evaluator(judge=HPEJudge.random_init(judge_size, device="cuda"),
-                            device="cuda")
-    rng = np.random.RandomState(SEED)
-    gt = torch.from_numpy(rng.uniform(-1, 1, (2, size, size, 3)).astype(np.float32))
-    pred = (gt * 0.8 + 0.1).contiguous()
-    errs = {}
-    for part, a, b in zip(("logits", "pool"),
-                          on_card.inception_forward(pred.cuda()),
-                          on_cpu.inception_forward(pred)):
-        errs[part] = float((a.cpu() - b).abs().max() / (b.abs().max() + 1e-12))
-    errs["ssim"] = float((on_card.ssim_forward(pred.cuda(), gt.cuda()).cpu()
-                          - on_cpu.ssim_forward(pred, gt)).abs().max())
-    small = pred[:, ::2, ::2].contiguous()
-    with full_fp32():
-        heat_card = on_card.judge.hpm2d(small.cuda())
-        heat_cpu = on_cpu.judge.hpm2d(small)
-        z_card = on_card.judge.hpm3d(heat_cpu[-1].cuda())
-        z_cpu = on_cpu.judge.hpm3d(heat_cpu[-1])
-    errs["heatmaps"] = max(float((a.cpu() - b).abs().max() / b.abs().max())
-                           for a, b in zip(heat_card, heat_cpu))
-    errs["z"] = float((z_card.cpu() - z_cpu).abs().max() / z_cpu.abs().max())
-    # f32 with TF32 off, conv taps summed in another order: 1e-4 of the
-    # largest value; SSIM absolute
-    check(all(v <= 1e-4 for k, v in errs.items() if k != "ssim")
-          and errs["ssim"] <= 1e-5, f"eval modules card vs CPU: {errs}")
-    print("small eval reference (batch 2, f32, TF32 off): create_input_image "
-          "bit for bit; relative errors "
-          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    uv = torch.from_numpy(raw["tgt_uv"])
+    z = torch.from_numpy((np.asarray(raw["tgt_z"]) / 700.0 * 255.0
+                          ).astype(np.float32))
+    uv_d, z_d = uv.cuda(), z.cuda()
+    # bit for bit against the CPU (the plain version on the card multiplies
+    # by 1/5 where K3 and the CPU divide by 5)
+    check(torch.equal(generate_jointsmap(uv_d, z_d, size, size).cpu(),
+                      generate_jointsmap_ref(uv, z, size, size)),
+          "K3 differs from the plain version on the CPU")
+    pairs, near, run = jointsmap_pairs(uv, z, size, size)
+    ms = cuda_ms(lambda: generate_jointsmap(uv_d, z_d, size, size))
+    device_ms = kernel_device_ms(
+        lambda: generate_jointsmap(uv_d, z_d, size, size), K3_KERNELS)
+    plain_ms = cuda_ms(lambda: generate_jointsmap_ref(uv_d, z_d, size, size))
+    io_bytes = nb * size * size * 4 + uv.numel() * 4 + z.numel() * 4
+    # the exact test's 16 f32 operations, for the pairs whose pixel the
+    # bone's rectangle does not rule out; beside it, all pairs
+    k3_bound, k3_by = bound(io_bytes, K3_OPS_PER_PIXEL_BONE * near)
+    all_bound, _ = bound(io_bytes, K3_OPS_PER_PIXEL_BONE * pairs)
+    wrapper_us = host_us(lambda: generate_jointsmap(uv_d[:1], z_d[:1], 8, 8))
+    print(f"K3 generate_jointsmap on the baselines' batch ({nb}, {size}, "
+          f"{size}): pairs {pairs}, not ruled out pixel by pixel {near}, run "
+          f"by the warp tiles {run} (skipped {1 - run / pairs:.4f}); kernel "
+          f"{ms:.4f} ms per call ({device_ms:.4f} ms of device time, "
+          f"profiler; the wrapper's host work {wrapper_us:.1f} us per call at "
+          f"(1, 8, 8)), plain {plain_ms:.4f} ms (equal to the CPU's bit for "
+          f"bit), bound {k3_bound:.4f} ms ({k3_by}; {all_bound:.4f} ms for "
+          f"all pairs); no single PyTorch "
+          f"call computes the same function")
+    return {"name": "generate_jointsmap", "route": "cuda",
+            "source": "mmhand_torch/csrc/jointsmap.cu", "replaces": K3_REPLACES,
+            "max_abs_err": 0.0, "max_rel_err": None, "ms": ms, "plain_ms": plain_ms, "bound_ms": k3_bound,
+            "bound_by": k3_by, "library_ms": None, "device_ms": device_ms,
+            "skipped_share": 1 - run / pairs}
 
 
 def _run_main(fn, argv):
@@ -2580,57 +1711,19 @@ def eval_slice_phase(tmp: Path) -> dict:
         evaluator.feed(out, gt[:nb], xyz)
 
     print(profile_step(one_baseline_batch, "unet baseline batch of 8",
-                       {"K3": K3_KERNELS})[0])
+                       {"K3": K3_KERNELS}))
     return total
-
-
-def hpe_step_flops(system, batch) -> float:
-    """Floating-point operations of one HPE step's convolutions and linear
-    layers: 2 x the multiply-adds of each net's forward on this batch,
-    counted from the layers' shapes by hooks, times 3 (the backward forms
-    the input's and the weights' gradients, each as many)."""
-    import torch
-    from torch import nn
-
-    total = [0]
-
-    def count(module, args, out):
-        if isinstance(module, nn.Conv2d):
-            k = module.in_channels // module.groups * math.prod(
-                module.kernel_size)
-        else:
-            k = module.in_features
-        total[0] += 2 * out.numel() * k
-
-    nets = (system.hpm2d, system.hpm3d)
-    hooks = [m.register_forward_hook(count) for net in nets
-             for m in net.modules() if isinstance(m, (nn.Conv2d, nn.Linear))]
-    try:
-        with torch.no_grad(), system.autocast():
-            system.hpm2d(batch["image"])
-            system.hpm3d(batch["heatmaps"])
-    finally:
-        for h in hooks:
-            h.remove()
-    return 3.0 * total[0]
 
 
 def hpe_train_phase(tmp: Path) -> tuple[dict, Path]:
     """The HPE path at full width through scripts.train_hpe.main on an
     RHD-layout tree (--model hpm, batch 32, 256 px, bf16): losses, nets
-    moved, K1 at sigma 5 on the batch's keypoints, one step's time, rate,
-    FLOP share and profile.  Returns the kernels' launches in the run and
+    moved, the state saved.  Returns the kernels' launches in the run and
     the tree."""
     import torch
 
     from mmhand_torch.data.rhd_tree import write_rhd_tree
-    from mmhand_torch.hpe import (
-        HPEMixDataset,
-        HPESystem,
-        make_hpe_prepare_batch,
-        make_hpe_train_step,
-    )
-    from mmhand_torch.ops.heatmap import gaussian_heatmaps, gaussian_heatmaps_ref
+    from mmhand_torch.hpe import HPESystem
     from mmhand_torch.scripts import train_hpe
     from mmhand_torch.utils.checkpoint import CheckpointManager
 
@@ -2645,11 +1738,11 @@ def hpe_train_phase(tmp: Path) -> tuple[dict, Path]:
             "--max_steps", str(steps), "--print_freq", "1",
             "--checkpoints_dir", str(tmp / "hpe_ckpt"), "--name", "hpe_smoke",
             "--device", "cuda",
-            # no epoch saves inside the run (2 steps per epoch): the loop's
-            # rate is then the steps' and the data's; a save is timed below
+            # no epoch saves inside the run (2 steps per epoch); a save is
+            # timed below
             "--save_epoch_freq", "10"]
     torch.cuda.reset_peak_memory_stats()
-    result, out, seconds, launches = _run_main(train_hpe.main, argv)
+    result, out, _, launches = _run_main(train_hpe.main, argv)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     print(out)
     system, cfg = result.system, result.system.config
@@ -2690,57 +1783,17 @@ def hpe_train_phase(tmp: Path) -> tuple[dict, Path]:
     check((tmp / "hpe_ckpt" / "hpe_smoke" / "state_latest.pt").exists(),
           "HPE state_latest.pt not written")
 
-    # the host's share of a loop step: one batch read (PIL decode of 32
-    # PNGs), host clock; and one save of the whole train state
-    dataset = HPEMixDataset(cfg)
-    start = time.perf_counter()
-    raw = dataset.batch(range(batch_size))
-    read_ms = (time.perf_counter() - start) * 1e3
+    check(result.images_per_sec is not None and result.images_per_sec > 0,
+          "train_hpe printed no steady rate")
+
+    # one save of the whole train state
     ckpt = CheckpointManager(str(tmp / "hpe_ckpt"), "hpe_smoke")
     start = time.perf_counter()
     ckpt.save(system, "timed")
     save_s = time.perf_counter() - start
     state_bytes = Path(ckpt.path("timed")).stat().st_size
-
-    # K1 at sigma 5 on the HPE path's keypoints, at its shape
-    uv = torch.from_numpy(raw["uv"]).cuda()
-    err, exempt, skipped = check_heatmaps(uv, size, size, 5.0, "HPE batch")
-    k1_ms = cuda_ms(lambda: gaussian_heatmaps(uv, size, size, 5.0))
-    k1_device = kernel_device_ms(
-        lambda: gaussian_heatmaps(uv, size, size, 5.0), K1_KERNELS)
-    k1_plain = cuda_ms(lambda: gaussian_heatmaps_ref(uv, size, size, 5.0))
-    k1_bound, k1_by = bound(batch_size * size * size * 21 * 4 + uv.numel() * 4,
-                            9 * (1 - skipped) * batch_size * size * size * 21)
-    print(f"K1 sigma 5 on the HPE batch ({batch_size}, {size}, {size}, 21): "
-          f"max_abs_err {err} ({exempt} exempt) against gaussian_heatmaps_ref; "
-          f"early-out skips {skipped:.4f}; kernel {k1_ms:.4f} ms per call "
-          f"({k1_device:.4f} ms of device time), plain {k1_plain:.4f} ms, "
-          f"bound {k1_bound:.4f} ms ({k1_by})")
-
-    # one step, CUDA events, median of the steady steps after warm-up
-    step = make_hpe_train_step(system)
-    prepare = make_hpe_prepare_batch(device="cuda")
-    batch = prepare(raw)
-    lr = cfg.optim.lr
-    prep_ms = cuda_ms(lambda: prepare(raw), iters=5, warmup=1)
-    step_ms = cuda_ms(lambda: step(batch, lr), iters=5, warmup=1)
-    flops = hpe_step_flops(system, batch)
-    report, _ = profile_step(lambda: step(prepare(raw), lr),
-                             "HPE prepare + step", {"K1": K1_KERNELS})
-    print(report)
-    rate = result.images_per_sec
-    check(rate is not None and rate > 0, "train_hpe printed no steady rate")
-    print(f"HPE train: {steps} steps at batch {batch_size} in {seconds:.3f} s "
-          f"(build and cuDNN warm-up included), {rate} images/s in the loop "
-          f"after the first step; one step {step_ms:.3f} ms (CUDA events, "
-          f"median of 5), {batch_size / step_ms * 1e3:.2f} images/s, prepare "
-          f"{prep_ms:.3f} ms; {flops / 1e12:.3f} TFLOP per step (convolutions "
-          f"and linear layers, 3 x forward), {flops / step_ms / 1e9:.1f} "
-          f"TFLOP/s, {100 * flops / step_ms / 1e-3 / BF16_FLOPS:.1f}% of the "
-          f"bf16 dense peak; peak device memory {peak_gib:.2f} GiB; launches "
-          f"{launches}")
-    print(f"HPE host work per loop step: batch read {read_ms:.3f} ms (PIL "
-          f"decode of {batch_size} PNGs, host clock); state_<label>.pt "
+    print(f"HPE train: {steps} steps at batch {batch_size}, peak device "
+          f"memory {peak_gib:.2f} GiB, launches {launches}; state_<label>.pt "
           f"{state_bytes} bytes, saved in {save_s:.3f} s (each "
           f"--save_epoch_freq epoch saves it twice)")
     return launches, tree
@@ -2940,17 +1993,10 @@ def preprocess_phase(tmp: Path) -> tuple[Path, Path, dict]:
 def export_phase(tmp: Path, crops: Path) -> dict:
     """The baseline exports on the RHD training crops (pairs, keypoints,
     pix2pixhd with K3 in batches of 64) and the pose maps at 256 px, sigma
-    6; one batch of labels held against the plain rasterizer run on the
-    CPU, bit for bit.  Returns the kernels' launches in the pix2pixhd run."""
+    6.  Returns the kernels' launches in the pix2pixhd run."""
     import numpy as np
-    import torch
-    from PIL import Image
 
     from mmhand_torch.data.annotations import load_annotations
-    from mmhand_torch.ops.jointsmap import (
-        generate_jointsmap,
-        generate_jointsmap_ref,
-    )
     from mmhand_torch.scripts import export_baseline_formats, generate_pose_maps
 
     size, batch = FULL["size"], PRE["label_batch"]
@@ -2974,27 +2020,12 @@ def export_phase(tmp: Path, crops: Path) -> dict:
     print(f"export pix2pixhd: {n} labels and images in {seconds:.3f} s, "
           f"{n / seconds:.2f} images/s (PNG writes on the host), launches "
           f"{p2p_launches}")
-    names = sorted(annos)[:batch]
-    uv = torch.from_numpy(np.stack([np.asarray(annos[k]["uv_coord"], np.float32)
-                                    for k in names]))
-    z = torch.from_numpy(np.stack([np.asarray(annos[k]["depth"], np.float32)
-                                   for k in names]))
-    want = generate_jointsmap_ref(uv, z, size, size)
-    card = generate_jointsmap(uv.cuda(), z.cuda(), size, size).cpu()
-    written = np.stack([np.asarray(Image.open(labels_dir / "train_label"
-                                              / f"color_{k}")) for k in names])
-    check(torch.equal(card, want)
-          and np.array_equal(written, want.numpy().astype(np.uint8)),
-          "pix2pixhd labels differ from the plain rasterizer")
-    print(f"pix2pixhd labels: a batch of {len(names)} equals the plain "
-          f"rasterizer on the CPU bit for bit ({int((want > 0).sum())} bone "
-          f"pixels)")
 
     got, out, seconds, launches = _run_main(
         generate_pose_maps.main,
         [str(tmp / "keypoints.csv"), str(tmp / "pose" / "trainP"), "--size",
          str(size), str(size), "--sigma", str(CSV_TRAIN["sigma"])])
-    first = np.load(tmp / "pose" / "trainP" / "color" / f"{names[0]}.npy")
+    first = np.load(tmp / "pose" / "trainP" / "color" / f"{min(annos)}.npy")
     check(got == n and first.shape == (size, size, 21)
           and 0.9 < float(first.max()) <= 1.0 and not any(launches.values()),
           f"pose maps: {got}, {first.shape}, max {first.max()}")
@@ -3080,12 +2111,10 @@ def csv_train_phase(tmp: Path) -> dict:
 def patn2_phase(test_crops: Path) -> dict:
     """bench_baselines --arch patn2 at full width (ngf 64, 9 blocks, 256 px,
     eval batch 8) over the RHD evaluation crops: finite scores under random
-    weights, K1 twice per batch (P1, P2) and no other kernel; K1 held
-    against its plain version on the first batch's keypoints.  Returns the
+    weights, K1 twice per batch (P1, P2) and no other kernel.  Returns the
     kernels' launches in the run."""
     import warnings
 
-    import numpy as np
     import torch
 
     from mmhand_torch.config import Config, DataConfig, ModelConfig
@@ -3113,10 +2142,6 @@ def patn2_phase(test_crops: Path) -> dict:
                  is_train=False)
     raw = next(HostLoader(build_dataset(cfg), batch, shuffle=False,
                           num_threads=1).epoch(0))
-    for key in ("src_uv", "tgt_uv"):
-        uv = torch.from_numpy(raw[key]).cuda()
-        err, exempt, skipped = check_heatmaps(uv, size, size, cfg.data.sigma,
-                                              f"PATN2 {key}")
     prepared = make_prepare_batch(cfg.data.sigma, "cuda")(
         {k: v for k, v in raw.items() if not k.endswith("paths")})
     with warnings.catch_warnings():
@@ -3129,27 +2154,18 @@ def patn2_phase(test_crops: Path) -> dict:
           f"{seconds:.3f} s (FID's 2048-d sqrtm on the host included), "
           f"{scores['images_per_sec_steady']} images/s after the first "
           f"batch, PATN2 G {g_ms:.3f} ms per batch of {batch} (CUDA events), "
-          f"peak device memory {peak_gib:.2f} GiB, launches {launches}; K1 "
-          f"on the batch's keypoints within {err} of its plain version")
+          f"peak device memory {peak_gib:.2f} GiB, launches {launches}")
     return launches
 
 
 def pose_resnet_phase() -> dict:
     """PoseResNet-50 at batch 32 and 256 px in bf16: an eval forward, one
     train-mode forward and backward counting K2/K2b at its 56 BatchNorms;
-    K2 over those 56 inputs against torch.batch_norm_stats, and K2 and K2b
-    on each of them against their plain versions; the same
-    weights in float32 (TF32 off) at batch 2 held against the plain
-    version on the CPU: output, running statistics and every gradient.
-    Returns the kernels' launches in the train-mode pass."""
-    import copy
-
+    K2 over those 56 inputs against torch.batch_norm_stats.  Returns the
+    kernels' launches in the train-mode pass."""
     import torch
 
-    from mmhand_torch.models.check_nets import (
-        make_test_pose_resnet,
-        pose_resnet_f64,
-    )
+    from benchmark import roofline
     from mmhand_torch.ops.bn_stats import bn_sums, bn_sums_ref
 
     size, batch, sites = FULL["size"], POSE["batch"], POSE["bn_sites"]
@@ -3189,12 +2205,11 @@ def pose_resnet_phase() -> dict:
     lib_device = kernel_device_ms(
         lambda: [torch.batch_norm_stats(t, 1e-5) for t in inputs],
         ("batch_norm",), calls=5)
-    k2_bound = sum(bound(t.numel() * t.element_size() + 2 * t.shape[1] * 4,
-                         3 * t.numel())[0] for t in inputs)
+    k2_bound = sum(roofline.k2_bound_s(t.numel(), t.element_size(),
+                                       t.shape[1]) for t in inputs) * 1e3
     gb = sum(t.numel() * t.element_size() for t in inputs) / 1e9
-    report, _ = profile_step(train_pass, "PoseResNet-50 train pass",
-                             {"K2": K2_KERNELS, "K2b": K2B_KERNELS})
-    print(report)
+    print(profile_step(train_pass, "PoseResNet-50 train pass",
+                       {"K2": K2_KERNELS, "K2b": K2B_KERNELS}))
     print(f"PoseResNet-50 at batch {batch}, {size} px, bf16: eval forward "
           f"{eval_ms:.3f} ms, train-mode forward and backward {train_ms:.3f} "
           f"ms (CUDA events, median of 5); launches {launches}")
@@ -3203,67 +2218,15 @@ def pose_resnet_phase() -> dict:
           f"({k2_device:.4f} ms of device time), torch.batch_norm_stats "
           f"{lib_ms:.4f} ms ({lib_device:.4f} ms), plain {plain_ms:.4f} ms, "
           f"bound {k2_bound:.4f} ms")
-    print(hold_bn_inputs(f"PoseResNet-50 at batch {batch}", inputs))
-    del inputs, net
-
-    # the same weights in float32 at batch 2: card (K2, K2b) against the
-    # plain version on the CPU; the gradients also against float64
-    cpu = make_test_pose_resnet(POSE["size"], None, SEED).train()
-    card = copy.deepcopy(cpu).to(device="cuda", memory_format=torch.channels_last)
-    f64 = copy.deepcopy(cpu).double()
-    xs, ws = x[:POSE["cpu_batch"]].float().cpu(), w[:POSE["cpu_batch"]].cpu()
-    with tf32_off():
-        got = card(xs.cuda())
-        (got * ws.cuda()).sum().backward()
-    want = cpu(xs)
-    (want * ws).sum().backward()
-    (pose_resnet_f64(f64, xs.double()) * ws.double()).sum().backward()
-    got, want = got.detach(), want.detach()
-    out_err = float((got.cpu() - want).abs().max())
-    check(out_err <= 1e-4 + 1e-4 * float(want.abs().max()),
-          f"PoseResNet card output differs from the CPU by {out_err}")
-    stats_err = 0.0
-    a = card.state_dict()
-    for k, v in cpu.state_dict().items():
-        if "running" in k:
-            e = float((a[k].cpu() - v).abs().max())
-            check(e <= 1e-5 + 1e-4 * float(v.abs().max()),
-                  f"PoseResNet {k} differs by {e}")
-            stats_err = max(stats_err, e)
-    # each gradient's error against float64, as a share of its norm: the
-    # card's f32 within 4x the CPU's f32.  At batch 2 the f32 gradients of
-    # this random net lie up to ~15% from float64 in layer4 on the CPU
-    # alone (torch's own f32 BatchNorm too): rounding amplified through
-    # 50 train-mode BatchNorms, the same on either side
-    worst = (0.0, 0.0)
-    for (k, p), q, r in zip(cpu.named_parameters(), card.parameters(),
-                            f64.parameters()):
-        scale = float(r.grad.norm())
-        e_cpu = float((p.grad.double() - r.grad).norm()) / scale
-        e_card = float((q.grad.cpu().double() - r.grad).norm()) / scale
-        check(e_card <= 4 * e_cpu + 1e-6,
-              f"PoseResNet grad {k}: card {e_card:.3e}, CPU {e_cpu:.3e} "
-              f"from float64")
-        worst = max(worst, (e_card, e_cpu))
-    print(f"PoseResNet-50 train pass at batch {POSE['cpu_batch']}, f32, TF32 "
-          f"off, card against the CPU: output within {out_err:.3e}, running "
-          f"statistics within {stats_err:.3e}; gradients against float64: "
-          f"the card's at most {worst[0]:.3e} of a tensor's norm, the CPU's "
-          f"{worst[1]:.3e} there")
     return launches
 
 
 def zoo_nets_phase() -> dict:
     """NLayerDiscriminator, PixelDiscriminator and PATN2Stream at full
-    width: eval forwards against the CPU at 64 px in float32 (TF32 off);
-    train-mode forwards and backwards at batch 8, 256 px, bf16, counting
-    K2/K2b, and K2 and K2b on each of their BatchNorm inputs against their
-    plain versions.  Then every init type on the flagship generator, each conv
-    weight's std against its formula and the orthogonal ones
+    width: train-mode forwards and backwards at batch 8, 256 px, bf16,
+    counting K2/K2b.  Then every init type on the flagship generator, each
+    conv weight's std against its formula and the orthogonal ones
     semi-orthogonal.  Returns the kernels' launches in the train passes."""
-    import copy
-
-    import numpy as np
     import torch
 
     from mmhand_torch.models.baselines import (
@@ -3272,74 +2235,38 @@ def zoo_nets_phase() -> dict:
         PixelDiscriminator,
     )
     from mmhand_torch.models.generator import Generator
-    from mmhand_torch.models.layers import (
-        INIT_TYPES,
-        BatchNorm2d,
-        init_weights,
-        weight_fans,
-    )
+    from mmhand_torch.models.layers import INIT_TYPES, init_weights, weight_fans
 
     size = FULL["size"]
-    rng = np.random.RandomState(SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
     # each net and its train-mode BatchNorms
     nets = {"NLayerDiscriminator": (NLayerDiscriminator, 3),
             "PixelDiscriminator": (PixelDiscriminator, 1),
             "PATN2Stream": (PATN2Stream, 35)}
     total = {k: 0 for k in kernel_launches()}
     for name, (cls, bns) in nets.items():
-        gen = torch.Generator().manual_seed(SEED)
-        cpu = init_weights(cls(compute_dtype=None), "normal", gen).eval()
-        with torch.no_grad():
-            for m in cpu.modules():
-                if isinstance(m, torch.nn.BatchNorm2d):
-                    m.running_mean.normal_(0, 0.05, generator=gen)
-                    m.running_var.uniform_(0.1, 1.0, generator=gen)
-
-        def inputs(batch, px, device):
-            x = torch.from_numpy(rng.uniform(-1, 1, (batch, px, px, 3)).astype(
-                np.float32)).to(device)
-            if cls is not PATN2Stream:
-                return x
-            p = torch.from_numpy(rng.uniform(0, 1, (batch, px, px, 42)).astype(
-                np.float32)).to(device)
-            return (x, p)
-
-        card = copy.deepcopy(cpu).to(device="cuda",
-                                     memory_format=torch.channels_last)
-        small = inputs(2, 64, "cpu")
-        with torch.no_grad(), tf32_off():
-            want = cpu(small)
-            got = card(tuple(t.cuda() for t in small)
-                       if isinstance(small, tuple) else small.cuda())
-        err = float((got.cpu() - want).abs().max())
-        check(err <= 1e-4 + 1e-4 * float(want.abs().max()),
-              f"{name}: card differs from the CPU by {err}")
+        card = init_weights(cls(compute_dtype=None), "normal",
+                            torch.Generator().manual_seed(SEED))
+        card = card.to(device="cuda", memory_format=torch.channels_last)
         card.compute_dtype = torch.bfloat16
         card.train()
-        big = inputs(8, size, "cuda")
-        bn_inputs = []
-        hooks = [m.register_forward_pre_hook(
-            lambda mod, args: bn_inputs.append(args[0].detach()))
-            for m in card.modules() if isinstance(m, BatchNorm2d)]
+        x = torch.rand(8, size, size, 3, generator=gen, device="cuda") * 2 - 1
+        if cls is PATN2Stream:
+            x = (x, torch.rand(8, size, size, 42, generator=gen,
+                               device="cuda"))
         reset_launches()
-        out = card(big)
+        out = card(x)
         out.float().square().mean().backward()
         torch.cuda.synchronize()
         launches = kernel_launches()
-        for h in hooks:
-            h.remove()
         check(bool(torch.isfinite(out).all())
-              and launches["bn_sums"] == launches["bn_sums_backward"] == bns
-              and len(bn_inputs) == bns,
-              f"{name}: train pass, launches {launches}, "
-              f"{len(bn_inputs)} BatchNorm inputs")
-        print(f"{name}: eval at 64 px within {err:.3e} of the CPU (f32); "
-              f"train-mode pass at batch 8, {size} px, bf16: output "
+              and launches["bn_sums"] == launches["bn_sums_backward"] == bns,
+              f"{name}: train pass, launches {launches}")
+        print(f"{name}: train-mode pass at batch 8, {size} px, bf16: output "
               f"{tuple(out.shape)}, launches {launches}")
-        print(hold_bn_inputs(f"{name} at batch 8, {size} px", bn_inputs))
         for k, v in launches.items():
             total[k] += v
-        del card, out, bn_inputs
+        del card, out
 
     for init_type in INIT_TYPES:
         g = init_weights(Generator(compute_dtype=None), init_type,
@@ -3376,143 +2303,15 @@ def zoo_nets_phase() -> dict:
 
 # ------------------------------------------------------------------ hand3d
 
-def _hand3d_records(n: int, size: int, seed: int) -> dict:
-    """Raw hand3d records at ``size`` px: left- or right-hand pixels in each
-    mask, most keypoints visible."""
-    import numpy as np
-
-    rng = np.random.RandomState(seed)
-    parts = np.zeros((n, size, size), np.uint8)
-    for i in range(n):
-        y, x = rng.randint(0, size // 2, 2)
-        parts[i, y:y + size // 3, x:x + size // 3] = 5 if i % 2 else 20
-    return {"keypoint_xyz": rng.normal(size=(n, 42, 3)).astype(np.float32),
-            "keypoint_uv": rng.uniform(size * 0.1, size * 0.9,
-                                       (n, 42, 2)).astype(np.float32),
-            "cam_mat": np.tile(np.eye(3, dtype=np.float32) * size, (n, 1, 1)),
-            "image": rng.randint(0, 256, (n, size, size, 3)).astype(np.uint8),
-            "hand_parts": parts, "keypoint_vis": rng.rand(n, 42) > 0.2}
-
-
-def hand3d_reference_phase() -> None:
-    """(a) The hand3d stack on the card against the CPU at 64 px in float32
-    with TF32 off: the five nets, ColorHandPose3D's 6-tuple, derive_batch
-    (noise off), single_obj_scoremap and crop_and_resize."""
-    import numpy as np
-    import torch
-
-    from mmhand_torch.hand3d import PipelineConfig, derive_batch
-    from mmhand_torch.models import hand3d as net
-    from mmhand_torch.ops import hand3d_image as h3img
-
-    size, b = HAND3D["check_size"], 2
-    rng = np.random.RandomState(SEED)
-    image = torch.from_numpy(rng.uniform(-0.5, 0.5, (b, size, size, 3))
-                             .astype(np.float32))
-    maps = torch.from_numpy(rng.uniform(0, 1, (b, size, size, 21))
-                            .astype(np.float32))
-    side = torch.tensor([[1.0, 0.0], [0.0, 1.0]])
-    gen = torch.Generator().manual_seed(SEED)
-    s8 = size // 8
-    cases = {
-        "HandSegNet": (net.HandSegNet(), (image,)),
-        "PoseNet2D": (net.PoseNet2D(), (image,)),
-        "PosePrior": (net.PosePrior(in_size=s8), (maps[:, :s8, :s8], side)),
-        "ViewpointNet": (net.ViewpointNet(in_size=s8),
-                         (maps[:, :s8, :s8], side)),
-        "PosePriorNetwork": (net.PosePriorNetwork(crop_size=size),
-                             (maps, side)),
-    }
-    full = net.init_hand3d(net.ColorHandPose3D(crop_size=size), gen)
-    with torch.no_grad():
-        # a decisive segmentation head, so the mask and its box do not
-        # hang on logits within rounding of each other
-        full.HandSegNet.conv6_2.conv.weight.mul_(1e4)
-    cases["ColorHandPose3D"] = (full, (image, side))
-    errs = {}
-
-    def rel(a, b):
-        return float((a.cpu() - b).abs().max() / (b.abs().max() + 1e-30))
-
-    with tf32_off(), torch.no_grad():
-        for name, (module, args) in cases.items():
-            if name != "ColorHandPose3D":
-                net.init_hand3d(module, gen)
-            want = module.eval()(*args)
-            card = module.cuda()
-            got = card(*(a.cuda() for a in args))
-            if name == "ColorHandPose3D":
-                for part, g, w in zip(("scoremap", "crop", "scale", "center",
-                                       "keypoints", "coord3d"), got, want):
-                    if part in ("scale", "center"):
-                        check(torch.equal(g.cpu(), w), f"ColorHandPose3D "
-                              f"{part} on the card {g.cpu()} against {w}")
-                    else:
-                        errs[f"ColorHandPose3D.{part}"] = rel(g, w)
-            else:
-                for i, (g, w) in enumerate(zip(
-                        got if isinstance(got, (list, tuple)) else [got],
-                        want if isinstance(want, (list, tuple)) else [want])):
-                    if w is not None:
-                        errs[f"{name}[{i}]"] = rel(g, w)
-            module.cpu()
-        # f32, TF32 off, conv taps summed in another order: 1e-4 of the
-        # largest value
-        check(all(v <= 1e-4 for v in errs.values()),
-              f"hand3d nets card vs CPU: {errs}")
-
-        logits = torch.from_numpy(rng.normal(size=(b, size, size, 2))
-                                  .astype(np.float32))
-        logits[:, 10:30, 20:40, 1] += 6.0
-        mask = h3img.single_obj_scoremap(logits)
-        check(torch.equal(h3img.single_obj_scoremap(logits.cuda()).cpu(),
-                          mask) and 0 < float(mask.sum()) < mask.numel(),
-              "single_obj_scoremap on the card differs from the CPU")
-        boxes = torch.tensor([[0.1, -0.2, 0.7, 0.9], [-0.3, 0.2, 0.8, 1.4]])
-        want = h3img.crop_and_resize(image, boxes, 48)
-        errs["crop_and_resize"] = float(
-            (h3img.crop_and_resize(image.cuda(), boxes.cuda(), 48).cpu()
-             - want).abs().max())
-        # the card divides by a Python scalar as a multiply by its
-        # reciprocal: sample positions a few ulps apart
-        check(errs["crop_and_resize"] <= 1e-4,
-              f"crop_and_resize differs by {errs['crop_and_resize']}")
-
-    raw = _hand3d_records(4, size, SEED)
-    cfg = PipelineConfig(image_size=(size, size), crop_size=size // 2,
-                         use_wrist_coord=False, hand_crop=True)
-    want = derive_batch(raw, cfg, torch.Generator(), "cpu")
-    got = derive_batch(raw, cfg, torch.Generator(device="cuda"), "cuda")
-    worst = 0.0
-    for k, w in want.items():
-        g = got[k].cpu()
-        if w.dtype in (torch.bool, torch.int32):
-            check(torch.equal(g, w), f"derive_batch {k} differs on the card")
-            continue
-        excess = float(((g - w).abs() - 1e-5 - 1e-5 * w.abs()).max())
-        check(excess <= 0, f"derive_batch {k}: beyond 1e-5 by {excess}")
-        worst = max(worst, float((g - w).abs().max()))
-    errs["derive_batch"] = worst
-    print(f"hand3d on the card against the CPU ({size} px, f32, TF32 off): "
-          f"scale and centre of ColorHandPose3D equal, single_obj_scoremap "
-          f"bit for bit, the hand side, masks and visibility equal; largest "
-          f"errors (relative for the nets) "
-          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
-
-
 def hand3d_train_phase(tmp: Path) -> dict:
-    """(b) train_hand3d.main for handsegnet, posenet and lifting (proposed)
-    at 256 px, batch 8, 6 steps each on synthetic records, then posenet
-    resumed for 2 more: finite losses, every parameter tensor moved; one
-    step per net and derive_batch timed by CUDA events.  Returns the
-    kernels' launches (none: the hand3d nets hold no BatchNorm)."""
+    """train_hand3d.main for handsegnet, posenet and lifting (proposed) at
+    256 px, batch 8, 6 steps each on synthetic records, then posenet
+    resumed for 2 more: finite losses, every parameter tensor moved.
+    Returns the kernels' launches (none: the hand3d nets hold no
+    BatchNorm)."""
     import torch
 
-    from mmhand_torch.hand3d import (
-        Hand3DSystem,
-        derive_batch,
-        make_hand3d_train_step,
-    )
+    from mmhand_torch.hand3d import Hand3DSystem
     from mmhand_torch.scripts import train_hand3d
 
     size, batch, steps = HAND3D["size"], HAND3D["batch"], HAND3D["steps"]
@@ -3526,16 +2325,13 @@ def hand3d_train_phase(tmp: Path) -> dict:
               "--batch_size", str(batch), "--checkpoints_dir", str(ckpt),
               "--name", "h3d", "--device", "cuda"]
     total: dict[str, int] = {}
-    records = train_hand3d.synthetic_records(batch, size, SEED)
-    raw = train_hand3d.records_to_pipeline_batch(records)
-    gen = torch.Generator().manual_seed(SEED)
     runs = [("handsegnet", ["--net", "handsegnet"], steps),
             ("posenet", ["--net", "posenet"], steps),
             ("lifting", ["--net", "lifting", "--variant", "proposed"], steps),
             ("posenet", ["--net", "posenet", "--continue_train"], steps + 2)]
-    for i, (name, argv, until) in enumerate(runs):
+    for name, argv, until in runs:
         resumed = "--continue_train" in argv
-        result, out, seconds, launches = _run_main(
+        result, out, _, launches = _run_main(
             train_hand3d.main, argv + common + ["--max_iter", str(until)])
         losses = result.losses
         check(len(losses) == (2 if resumed else steps)
@@ -3548,8 +2344,7 @@ def hand3d_train_phase(tmp: Path) -> dict:
         if resumed:
             check("resumed at step 6" in out, f"{name} did not resume:\n{out}")
             print(f"train_hand3d --net posenet --continue_train: steps 7-8, "
-                  f"losses {[round(v, 6) for v in losses]} in "
-                  f"{seconds:.3f} s")
+                  f"losses {[round(v, 6) for v in losses]}")
             continue
         initial = Hand3DSystem(name, "proposed", HAND3D["crop"], "cpu",
                                seed=0).module.state_dict()
@@ -3557,28 +2352,10 @@ def hand3d_train_phase(tmp: Path) -> dict:
                  if torch.equal(v.cpu(), initial[k])]
         check(not still, f"{name}: {len(still)} tensors did not move: "
               f"{still[:6]}")
-        cfg = train_hand3d.pipeline_config_for(name, (size, size),
-                                               HAND3D["crop"])
-        derived = derive_batch(raw, cfg, gen, "cuda")
-        step = make_hand3d_train_step(result.system)
-        ms = cuda_ms(lambda: step(derived), iters=10, warmup=2)
-        derive_ms = cuda_ms(lambda: derive_batch(raw, cfg, gen, "cuda"),
-                            iters=10, warmup=2)
-        if name == "posenet":
-            print(profile_step(lambda: step(derived), "one posenet train step "
-                               "(batch 8, 256 px)", {})[0])
-        if name == "lifting":
-            print(profile_step(lambda: derive_batch(raw, cfg, gen, "cuda"),
-                               "derive_batch with hand_crop (batch 8)",
-                               {})[0])
         n_params = sum(p.numel() for p in result.system.module.parameters())
-        print(f"train_hand3d --net {name}: {steps} steps in {seconds:.3f} s "
-              f"(first step included), losses "
+        print(f"train_hand3d --net {name}: {steps} steps, losses "
               f"{[round(v, 6) for v in losses]}; every one of its "
-              f"{len(initial)} tensors ({n_params} parameters) moved; one "
-              f"step {ms:.3f} ms, {batch / ms * 1e3:.2f} images/s (CUDA "
-              f"events); derive_batch {derive_ms:.3f} ms per batch of "
-              f"{batch}")
+              f"{len(initial)} tensors ({n_params} parameters) moved")
     return total
 
 
@@ -3706,36 +2483,26 @@ def _layout(name: str):
 
 def msra_v2v_phase(tmp: Path) -> dict:
     """The MSRA/V2V group: an MSRA-layout tree read by MSRAHandDataset and
-    voxel_sample; V2VVoxelization on the card against the CPU with the same
-    draws; the four nets card against CPU (float32, TF32 off) at small
-    size; one train-mode step of each at full width (K2 and K2b once per
-    BatchNorm, 43 in all, held against their plain versions on every
-    input); K2b timed at the C=1 sites and the largest 5-D one; the pose
-    search over 76,375 poses on the card against the CPU.  Returns
-    the kernels' launches in the train steps."""
-    import copy
-
+    voxel_sample; V2VVoxelization on the card; one train-mode step of each
+    of the four nets at full width (K2 and K2b once per BatchNorm, 43 in
+    all); K2b timed at the C=1 and C=21 sites and the largest 5-D one; a
+    profiled VoxelGenerator step; the pose search over 76,375 poses on the
+    card and on the CPU.  Returns the kernels' launches in the train
+    steps."""
     import numpy as np
     import torch
 
+    from benchmark import roofline
     from mmhand_torch.data.msra import MSRAHandDataset, voxel_sample
     from mmhand_torch.data.raw_sources import write_raw_msra
     from mmhand_torch.eval.pose_search import knn_pose_distance
-    from mmhand_torch.models.check_nets import (
-        KINK_MARGIN,
-        biases_before_batchnorm,
-        bone_boundary,
-        edge_voxels,
-        gradients_off,
-        kink_decisions,
-    )
     from mmhand_torch.models.layers import BatchNorm2d, BatchNorm3d
     from mmhand_torch.ops.bn_stats import (
         bn_sums_backward,
         bn_sums_backward_ref,
         bn_sums_ref,
     )
-    from mmhand_torch.ops.voxelize import V2VVoxelization, generate_coord
+    from mmhand_torch.ops.voxelize import V2VVoxelization
 
     # 1. the data
     start = time.perf_counter()
@@ -3750,124 +2517,21 @@ def msra_v2v_phase(tmp: Path) -> dict:
           f"voxel samples of {min(points)}-{max(points)} hand points "
           f"(padded to 32768) in {time.perf_counter() - start:.3f} s")
 
-    # 2. V2VVoxelization on the card against the CPU, the same draws
-    size = 64
+    # 2. V2VVoxelization (64^3, augmentation) on the card
     on_card = V2VVoxelization(MSRA["cubic"], True,
                               np.random.RandomState(SEED), "cuda")
-    on_cpu = V2VVoxelization(MSRA["cubic"], True,
-                             np.random.RandomState(SEED), "cpu")
-    got, edge_in, edge_hand, coord_err = [], 0, 0, 0.0
-    for sample in samples:
-        state = on_cpu.rng.get_state()
-        card_out = on_card(sample)
-        want = on_cpu(sample)
-        got.append(card_out)
-        coord_err = max(coord_err, float((card_out[1].cpu() - want[1]).abs()
-                                         .max()))
-        peek = np.random.RandomState()
-        peek.set_state(state)
-        draws = V2VVoxelization(MSRA["cubic"], True, peek, "cpu")._draws()
-        point_coord = generate_coord(torch.from_numpy(sample["points"]),
-                                     sample["refpoint"], *draws,
-                                     on_cpu.sizes).numpy()
-        differ = (card_out[0].cpu() != want[0])[0].numpy()
-        check(not (differ & ~edge_voxels(point_coord, size, 1e-4)).any(),
-              "V2V input cube: a voxel differs off any voxel edge")
-        hand_differ = (card_out[2].cpu() != want[2])[0].numpy()
-        boundary = (bone_boundary(want[1].numpy(), size, 1e-5)
-                    | edge_voxels(want[1].numpy(), size, 1e-4))
-        check(not (hand_differ & ~boundary).any(),
-              "V2V hand cube: a voxel differs off any boundary")
-        edge_in += int(differ.sum())
-        edge_hand += int(hand_differ.sum())
-    check(coord_err <= 1e-4, f"V2V keypoint coordinates differ by {coord_err}")
-    torch.cuda.synchronize()
-    v2v_ms = cuda_ms(lambda: on_card(samples[0]), iters=10, warmup=2)
+    got = [on_card(sample) for sample in samples]
     inputs = torch.cat([g[0] for g in got])[..., None]    # (8, 64, 64, 64, 1)
     hands = torch.cat([g[2] for g in got])[..., None]
-    print(f"V2VVoxelization at {size}^3 with augmentation, card against the "
-          f"CPU with the same draws: keypoint coordinates within "
-          f"{coord_err:.3e} voxel; {edge_in} input and {edge_hand} hand "
-          f"voxels differ, each on a voxel edge or a bone's boundary; one "
+    check(float(inputs.sum()) > 0 and float(hands.sum()) > 0
+          and all(bool(torch.isfinite(g[1]).all()) for g in got),
+          "V2V: an empty cube or a non-finite keypoint coordinate")
+    v2v_ms = cuda_ms(lambda: on_card(samples[0]), iters=10, warmup=2)
+    print(f"V2VVoxelization at 64^3 with augmentation on the card: one "
           f"sample {v2v_ms:.3f} ms (CUDA events)")
-
-    # 3. the four nets, card against CPU in float32 and float64, TF32 off
-    rng = np.random.RandomState(SEED)
     gen = torch.Generator().manual_seed(SEED)
-    side = MSRA["check_side"]
-    # the discriminator at 64^3, where its last BatchNorm sees 27 values
-    # per sample (1 at 16^3)
-    small = {"VoxelGenerator": (2, side, side, side, 1),
-             "VoxelDiscriminator": (2, 64, 64, 64, 2),
-             "DepthGenerator": (4, 42), "DepthDiscriminator": (2, 256, 256, 1)}
-    for name, net in _msra_nets(gen).items():
-        with torch.no_grad():
-            for m in net.modules():
-                if isinstance(m, (BatchNorm2d, BatchNorm3d)):
-                    m.weight.normal_(1.0, 0.1, generator=gen)
-                    m.bias.normal_(0.0, 0.1, generator=gen)
-        net.train()
-        card = copy.deepcopy(net).to(device="cuda",
-                                     memory_format=_layout(name))
-        f64 = copy.deepcopy(net).double()
-        x = torch.from_numpy(rng.uniform(-1, 1, small[name]).astype(
-            np.float32))
 
-        def loss(outs):
-            outs = outs if isinstance(outs, tuple) else (outs,)
-            return sum((o * torch.linspace(-1, 1, o.numel(), device=o.device,
-                                           dtype=o.dtype).view(o.shape)).sum()
-                       for o in outs), outs
-
-        decisions, margins = [], []
-        with tf32_off():
-            with kink_decisions(record=decisions):
-                got_loss, got_out = loss(card(x.cuda()))
-            got_loss.backward()
-
-        def replayed(model, inp):
-            replay = iter(decisions)
-            with kink_decisions(replay=replay, margins=margins):
-                total, outs = loss(model(inp))
-            total.backward()
-            check(bool(decisions) and next(replay, None) is None,
-                  f"{name}: {len(decisions)} decisions not all replayed")
-            return outs
-
-        # the CPU in float32 and in float64, each replaying the card's
-        # (Leaky)ReLU and pool decisions
-        want_out = replayed(net, x)
-        replayed(f64, x.double())
-        flipped = sum(m[1] for m in margins)
-        margin = max(m[2] for m in margins)
-        out_err = max(float((g.detach().cpu() - w.detach()).abs().max()
-                            / w.detach().abs().max())
-                      for g, w in zip(got_out, want_out))
-        off, gap, e_cpu = gradients_off(f64, net, card)
-        a = card.state_dict()
-        stats_err = max(float((a[k].cpu() - v).abs().max())
-                        for k, v in net.state_dict().items() if "running" in k)
-        check(out_err <= 1e-4 and not off and stats_err <= 1e-5
-              and margin <= KINK_MARGIN,
-              f"{name} card against CPU: output {out_err}, gradients "
-              f"beyond 1e-4 + 4x the CPU's own error at {off}, running "
-              f"statistics {stats_err}, replayed decisions off a pass's "
-              f"own by {margin}")
-        print(f"{name} at {small[name]}, TF32 off, one train-mode forward "
-              f"and backward, card (f32) against the CPU in f32 and f64, "
-              f"both replaying the card's {len(decisions)} (Leaky)ReLU and "
-              f"pool decisions ({flipped} elements decided apart, each "
-              f"within {margin:.3e} of its input's largest |x| from its "
-              f"kink): outputs within {out_err:.3e} of their largest value; "
-              f"gradients within {gap:.3e} of their norm of the CPU's f32, "
-              f"whose own error against f64 reaches {e_cpu:.3e}, each leaf "
-              f"within 1e-4 + 4x that error (but the "
-              f"{len(biases_before_batchnorm(net))} conv biases before a "
-              f"BatchNorm, 0 in exact arithmetic); running statistics "
-              f"within {stats_err:.3e}")
-
-    # 4-5. one full-width train step of each net (f32, cuDNN defaults)
-    batch = MSRA["samples"]
+    # 3. one full-width train step of each net (f32, cuDNN defaults)
     depth_uv = np.concatenate([np.stack([it["uv"] for it in items])] * 4)
     full = {
         "VoxelGenerator": inputs,
@@ -3927,7 +2591,6 @@ def msra_v2v_phase(tmp: Path) -> dict:
               f"{tuple(x.shape)}, f32: loss {loss_value:.6f}, every tensor "
               f"moved, launches {launches}; {step_ms:.3f} ms (CUDA events, "
               f"median of 5)")
-        print(hold_bn_inputs(f"{name} at {tuple(x.shape)}", bn_inputs))
         for t in bn_inputs:
             if t.shape[1] in (1, 21) or (t.dim() == 5 and t.numel() > max(
                     (u.numel() for u in sites.values() if u.dim() == 5),
@@ -3938,7 +2601,7 @@ def msra_v2v_phase(tmp: Path) -> dict:
           == sum(MSRA_BN_SITES.values()),
           f"MSRA/V2V train launches {total}")
 
-    # 6. K2b at the C=1 and C=21 sites and the largest 5-D one, and both
+    # 4. K2b at the C=1 and C=21 sites and the largest 5-D one, and both
     # plain versions (K2's times there: bn_site_phase)
     largest = max((t.numel() for t in sites.values() if t.dim() == 5))
     for where, t in sites.items():
@@ -3952,7 +2615,7 @@ def msra_v2v_phase(tmp: Path) -> dict:
         plain = cuda_ms(lambda: bn_sums_ref(t), iters=10)
         plain_b = cuda_ms(lambda: bn_sums_backward_ref(t, g1, g2), iters=10)
         nbytes = t.numel() * t.element_size()
-        k2b_bound, _ = bound(2 * nbytes + 2 * c * 4, 2 * t.numel())
+        k2b_bound = roofline.k2b_bound_s(t.numel(), t.element_size(), c) * 1e3
         print(f"K2b at {where} {t.dtype} ({nbytes / 1e6:.1f} MB): "
               f"{k2b:.4f} ms of device time (profiler), bound "
               f"{k2b_bound:.4f} ms ({100 * k2b_bound / k2b:.1f}%); plain "
@@ -3966,23 +2629,18 @@ def msra_v2v_phase(tmp: Path) -> dict:
         (vg(inputs) - (hands * 2 - 1)).abs().mean().backward()
         vg_opt.step()
 
-    report, _ = profile_step(vg_step, f"one VoxelGenerator train step at "
-                             f"{tuple(inputs.shape)}",
-                             {"K2": K2_KERNELS, "K2b": K2B_KERNELS})
-    print(report)
+    print(profile_step(vg_step, f"one VoxelGenerator train step at "
+                       f"{tuple(inputs.shape)}",
+                       {"K2": K2_KERNELS, "K2b": K2B_KERNELS}))
     del vg, vg_opt
 
-    # 7. the pose search
+    # 5. the pose search
     prng = np.random.RandomState(SEED)
     database = prng.normal(0, 40, (MSRA["poses"], 21, 3))
     query = prng.normal(0, 40, (21, 3))
     idx, dist = knn_pose_distance(query, database, MSRA["k"], device="cuda")
-    want_idx, want_dist = knn_pose_distance(query, database, MSRA["k"],
-                                            device="cpu")
-    dist_err = float(np.abs(dist - want_dist).max())
-    check(np.array_equal(idx, want_idx) and dist_err <= 1e-12,
-          f"pose search: indices {idx[:5]} against {want_idx[:5]}, "
-          f"distances within {dist_err}")
+    check(len(idx) == MSRA["k"] and bool(np.isfinite(dist).all()),
+          f"pose search: {len(idx)} neighbours, distances {dist[:5]}")
     calls = 10
     torch.cuda.synchronize()
     start = time.perf_counter()
@@ -3993,10 +2651,9 @@ def msra_v2v_phase(tmp: Path) -> dict:
     knn_pose_distance(query, database, MSRA["k"], device="cpu")
     cpu_ms = (time.perf_counter() - start) * 1e3
     print(f"knn_pose_distance, k {MSRA['k']} over {MSRA['poses']} poses "
-          f"(float64): on the card the CPU's indices, distances within "
-          f"{dist_err:.3e}; {per_query:.3f} ms per query on the card (host "
-          f"clock, the numpy bone vectors and the copy in), {cpu_ms:.3f} ms "
-          f"on the CPU")
+          f"(float64): {per_query:.3f} ms per query on the card (host clock, "
+          f"the numpy bone vectors and the copy in), {cpu_ms:.3f} ms on the "
+          f"CPU")
     return total
 
 
@@ -4045,20 +2702,16 @@ def main() -> int:
     timed(bn_site_phase)
     bn_apply_rec, bn_apply_bwd_rec = timed(bn_apply_phase)
     k3 = timed(jointsmap_kernel_phase)
-    timed(small_reference_phase)
-    timed(small_train_phase)
-    timed(small_eval_phase)
-    timed(hand3d_reference_phase)
     paths = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = Path(tmp)
         gen_k1 = timed(slice_phase, tmp)
         check(gen_k1 > 0, "K1 was not launched on the generation path")
         paths["generation"] = {"gaussian_heatmaps": gen_k1}
-        paths["train"], step_ms = timed(train_slice_phase, tmp)
+        paths["train"] = timed(train_slice_phase, tmp)
         paths["fp16 train"] = timed(fp16_train_phase, tmp)
         paths["resume"] = timed(resume_phase, tmp)
-        paths["NCCL world 1"] = timed(nccl_phase, tmp, step_ms)
+        paths["NCCL world 1"] = timed(nccl_phase, tmp)
         paths["gloo 2 ranks (rank 0)"] = timed(gloo_phase, tmp)
         paths["longrun (leg 2 and SSIM)"] = timed(longrun_phase, tmp)
         paths["evaluation"] = timed(eval_slice_phase, tmp)
@@ -4105,8 +2758,8 @@ def main() -> int:
         {k: round(v, 3) for k, v in PHASE_SECONDS.items()}))
 
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err",
-             "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "device_ms", "skipped_share"]
+             "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
+             "skipped_share"]
     print(json.dumps({"kernels": [{k: rec[k] for k in order}
                                   for rec in (k1, k2, k2b, bn_apply_rec,
                                               bn_apply_bwd_rec, k3)]}))

@@ -39,8 +39,14 @@ from mmhand_torch.models.hand3d import (
     init_hand3d,
 )
 from mmhand_torch.ops.hand3d_image import resize_bilinear_tf1
-from mmhand_torch.parallel.sharding import all_reduce_grads, mean_metrics
-from mmhand_torch.train.state import load_adam_state_dict, rank_seed
+from mmhand_torch.parallel.sharding import mean_metrics
+from mmhand_torch.train.state import (
+    backward_and_step,
+    load_adam_state_dict,
+    rank_seed,
+    set_lr,
+    step_span,
+)
 from mmhand_torch.utils import trace
 
 # the reference training_*.py train_para dicts
@@ -177,24 +183,17 @@ def make_hand3d_train_step(system: Hand3DSystem):
     device = system.device
 
     def train_step(batch: dict) -> torch.Tensor:
-        trace.begin_step()
-        with trace.span("step"):
+        with step_span():
             return _train_step(batch)
 
     def _train_step(batch: dict) -> torch.Tensor:
         system.module.train()
-        for group in system.opt.param_groups:
-            group["lr"] = staged_lr(values, steps, system.step)
+        set_lr(system.opt, staged_lr(values, steps, system.step))
         system.opt.zero_grad(set_to_none=True)
         with trace.span("hand3d.forward", device):
             loss = system.loss_fn(batch)
-        with trace.span("backward", device):
-            loss.backward()
-        if system.distributed:
-            with trace.span("allreduce", device):
-                all_reduce_grads(system.module)
-        with trace.span("adam", device):
-            system.opt.step()
+        backward_and_step(system.module, system.opt, loss, device,
+                          system.distributed)
         system.step += 1
         loss = loss.detach()
         if system.distributed:

@@ -36,11 +36,14 @@ from torch import nn
 from mmhand_torch.config import Config
 from mmhand_torch.models.cpm import Hpm2d, Hpm3d
 from mmhand_torch.models.layers import init_lecun_normal
-from mmhand_torch.parallel.sharding import all_reduce_grads, mean_metrics
+from mmhand_torch.parallel.sharding import mean_metrics
 from mmhand_torch.train.state import (
+    backward_and_step,
     compute_dtype,
     load_adam_state_dict,
     make_adam,
+    set_lr,
+    step_span,
 )
 from mmhand_torch.utils import trace
 
@@ -152,17 +155,9 @@ class HPESystem:
 
 def _update(system: HPESystem, net: nn.Module, opt: torch.optim.Adam,
             loss: torch.Tensor, lr: float) -> None:
-    for group in opt.param_groups:
-        group["lr"] = lr
+    set_lr(opt, lr)
     opt.zero_grad(set_to_none=True)
-    device = system.device
-    with trace.span("backward", device):
-        loss.backward()
-    if system.distributed:
-        with trace.span("allreduce", device):
-            all_reduce_grads(net)
-    with trace.span("adam", device):
-        opt.step()
+    backward_and_step(net, opt, loss, system.device, system.distributed)
 
 
 def make_hpe_train_step(system: HPESystem):
@@ -180,8 +175,7 @@ def make_hpe_train_step(system: HPESystem):
     lz_scale = 10.0 if variant == "hpm3d" else 1.0
 
     def train_step(batch: dict, lr: float) -> dict:
-        trace.begin_step()
-        with trace.span("step"):
+        with step_span():
             return _train_step(batch, lr)
 
     def _train_step(batch: dict, lr: float) -> dict:

@@ -126,6 +126,29 @@ def rank_slice(batch: dict, rank: int) -> dict:
             for k, v in batch.items()}
 
 
+def params_agree(a: dict, b: dict, updates: int,
+                 lr: float) -> tuple[bool, str]:
+    """Whether two state_dicts of one network after ``updates`` Adam updates
+    each agree: at most 0.5% of its elements outside 2e-5 + 1e-3 |w|
+    (running statistics 1e-5 + 1e-3 |w|), none more than 2 lr an update
+    apart.  Adam divides each gradient by its own magnitude, so an element
+    whose gradient is near zero takes an update that f32 rounding decides.
+    Returns (agree, a summary)."""
+    outside = total = 0
+    worst = 0.0
+    for k, v in b.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        v = v.detach().cpu().float()
+        diff = (a[k].detach().cpu().float() - v).abs()
+        atol = 1e-5 if "running" in k else 2e-5
+        outside += int((diff > atol + 1e-3 * v.abs()).sum())
+        total += v.numel()
+        worst = max(worst, float(diff.max()))
+    return (outside <= 0.005 * total and worst <= 2 * lr * updates,
+            f"{outside}/{total} outside, max {worst:.3g}")
+
+
 def dryrun_multichip(n: int, timeout: float = 180) -> dict:
     """The three toy DP train steps in ``n`` gloo processes on the CPU;
     returns rank 0's metrics, averaged over the ranks, under "gan", "hpe"

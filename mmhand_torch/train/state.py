@@ -16,6 +16,7 @@ JAX's.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import warnings
 from typing import Optional
@@ -30,6 +31,7 @@ from mmhand_torch.models.discriminator import Discriminator
 from mmhand_torch.models.generator import Generator
 from mmhand_torch.models.layers import NormConfig, init_weights
 from mmhand_torch.models.vgg import VGG19Features, load_vgg19_npz
+from mmhand_torch.parallel.sharding import all_reduce_grads
 from mmhand_torch.train.pool import PoolState, pool_init
 from mmhand_torch.train.precision import LossScaleState, init_scales
 from mmhand_torch.utils import trace
@@ -223,6 +225,36 @@ def make_adam(net: nn.Module, cfg: Config) -> torch.optim.Adam:
     learning rate of each epoch."""
     return torch.optim.Adam(net.parameters(), lr=cfg.optim.lr,
                             betas=(cfg.optim.beta1, cfg.optim.beta2), eps=1e-8)
+
+
+def set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
+    """Every parameter group of ``opt`` at learning rate ``lr``."""
+    for group in opt.param_groups:
+        group["lr"] = lr
+
+
+def backward_and_step(net: nn.Module, opt: torch.optim.Optimizer,
+                      loss: torch.Tensor, device, distributed: bool) -> None:
+    """The update of every train step without loss scaling: the device
+    spans ``backward`` of ``loss``, ``allreduce`` of ``net``'s gradients
+    when ``distributed``, and ``adam``, ``opt.step()``."""
+    with trace.span("backward", device):
+        loss.backward()
+    if distributed:
+        with trace.span("allreduce", device):
+            all_reduce_grads(net)
+    with trace.span("adam", device):
+        opt.step()
+
+
+@contextlib.contextmanager
+def step_span(name: str = "step", device=None):
+    """Begin a step (``utils.trace``) and open its span: ``step`` on the
+    host around a train step, ``gen.forward`` on the device around an eval
+    step."""
+    trace.begin_step()
+    with trace.span(name, device):
+        yield
 
 
 def build_system(cfg: Config, device="cuda", *, vgg_npz: Optional[str] = None,

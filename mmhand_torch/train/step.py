@@ -43,7 +43,6 @@ from mmhand_torch.losses.gan import gan_loss
 from mmhand_torch.models.generator import Generator
 from mmhand_torch.models.layers import frozen_running_stats
 from mmhand_torch.parallel.sharding import (
-    all_reduce_grads,
     all_reduce_mean_,
     any_rank,
     flat_grads,
@@ -52,7 +51,12 @@ from mmhand_torch.parallel.sharding import (
 )
 from mmhand_torch.train.pool import pool_query_random
 from mmhand_torch.train.precision import grads_overflow, unscale_, update_scale
-from mmhand_torch.train.state import MMHandSystem
+from mmhand_torch.train.state import (
+    MMHandSystem,
+    backward_and_step,
+    set_lr,
+    step_span,
+)
 from mmhand_torch.utils import trace
 
 
@@ -121,11 +125,6 @@ class LRSchedule:
             d["lr"], d["best"], d["num_bad"])
 
 
-def _set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
-    for group in opt.param_groups:
-        group["lr"] = lr
-
-
 @contextlib.contextmanager
 def _as_loss(*nets: torch.nn.Module):
     """``nets`` as fixed parts of another network's loss: no gradients for
@@ -160,8 +159,7 @@ class TrainStep:
         self.overflow: Optional[torch.Tensor] = None
 
     def __call__(self, batch: dict, lr: float) -> dict:
-        trace.begin_step()
-        with trace.span("step"):
+        with step_span():
             return self._step(batch, lr)
 
     def _step(self, batch: dict, lr: float) -> dict:
@@ -193,13 +191,7 @@ class TrainStep:
         s = self.system
         device = s.device
         if s.scales is None:
-            with trace.span("backward", device):
-                loss.backward()
-            if s.distributed:
-                with trace.span("allreduce", device):
-                    all_reduce_grads(net)
-            with trace.span("adam", device):
-                opt.step()
+            backward_and_step(net, opt, loss, device, s.distributed)
             return
         scale = s.scales[which]
         with trace.span("backward", device):
@@ -243,7 +235,7 @@ class TrainStep:
         h1, h2, p2 = batch["H1"], batch["H2"], batch["P2"]
         g_in = (h1, torch.cat([batch["P1"], p2], -1),
                 torch.cat([batch["D1"], batch["D2"]], -1))
-        _set_lr(s.opt_g, lr)
+        set_lr(s.opt_g, lr)
         s.opt_g.zero_grad(set_to_none=True)
         with _as_loss(s.d_pb, s.d_pp):
             fake = s.generator(g_in)
@@ -279,7 +271,7 @@ class TrainStep:
         s = self.system
         net, opt = ((s.d_pp, s.opt_d_pp) if which == "pp"
                     else (s.d_pb, s.opt_d_pb))
-        _set_lr(opt, lr)
+        set_lr(opt, lr)
         opt.zero_grad(set_to_none=True)
         loss_real = gan_loss(net(real), True, self.gan_mode) * self.lam_gan
         loss_fake = gan_loss(net(fake), False, self.gan_mode) * self.lam_gan
@@ -300,8 +292,7 @@ def make_eval_step(generator: Generator):
 
     def eval_step(batch: dict) -> torch.Tensor:
         generator.eval()
-        trace.begin_step()
-        with (trace.span("gen.forward", batch["H1"].device),
+        with (step_span("gen.forward", batch["H1"].device),
               torch.inference_mode()):
             g_in = (batch["H1"],
                     torch.cat([batch["P1"], batch["P2"]], dim=-1),

@@ -187,27 +187,51 @@ def test_prepare_batch_on_card_matches_cpu(cuda):
 
 # K2's edge cases: C not a multiple of the vector width with N mod k != 0
 # (N = 3 * 7 * 9 = 189; k = 2, 4 or 8), then an unaligned base (``big[1:]``
-# of a C=1 tensor with H*W odd: 63 elements, 252 bytes in), and one element
-# at an unaligned base, fewer than the head before the 16-byte boundary
+# of a C=1 tensor with H*W odd: 63 elements, 252 bytes in; a large one; a
+# 5-D one), and one element at an unaligned base, fewer than the head
+# before the 16-byte boundary
 BN_EDGE_CASES = [((3, c, 7, 9), dtype, 0) for c in (1, 2, 3, 5, 21)
                  for dtype in (torch.float32, torch.bfloat16)]
 BN_EDGE_CASES += [((5, 1, 7, 9), torch.float32, 1),
                   ((5, 1, 7, 9), torch.bfloat16, 1),
                   ((9, 3, 5, 7), torch.float16, 1),
+                  ((33, 1, 127, 129), torch.float32, 1),
+                  ((3, 21, 5, 7, 9), torch.float32, 1),
                   ((2, 1, 1, 1), torch.float32, 1),
                   ((2, 1, 1, 1), torch.bfloat16, 1)]
 
 
+def _layout(shape):
+    return torch.channels_last if len(shape) == 4 else torch.channels_last_3d
+
+
 def _bn_input(shape, dtype, offset, seed, device):
-    """A channels_last tensor of ``shape`` from a seed, or with ``offset``
-    the tensor without its first ``offset`` images (a view at an offset),
-    and the generator, to draw more from."""
+    """A channels_last (5-D: channels_last_3d) tensor of ``shape`` from a
+    seed, or with ``offset`` the tensor without its first ``offset`` images
+    (a view at an offset), and the generator, to draw more from."""
     gen = torch.Generator(device=device).manual_seed(seed)
     big = (torch.randn(shape, generator=gen, device=device) * 1.5 + 0.3).to(
-        dtype).contiguous(memory_format=torch.channels_last)
+        dtype).contiguous(memory_format=_layout(shape))
     x = big[offset:]
-    assert x.is_contiguous(memory_format=torch.channels_last)
+    assert x.is_contiguous(memory_format=_layout(shape))
     return x, gen
+
+
+def _hold_bn_kernels(x, g1, g2):
+    """K2 on ``x`` against the plain sums: f32 sums in another order, held
+    relative to sum |x| and sum x^2 at 1e-5.  K2b against the plain
+    formula: the same operations in the same order, so bit for bit.
+    Returns K2's sums and K2b's output."""
+    s1, s2 = bn_sums(x)
+    dx = bn_sums_backward(x, g1, g2)
+    r1, r2 = bn_sums_ref(x)
+    axes = (0,) + tuple(range(2, x.dim()))
+    assert float(((s1 - r1).abs() / x.float().abs().sum(axes)).max()) <= 1e-5
+    assert float(((s2 - r2).abs() / r2).max()) <= 1e-5
+    assert dx.dtype == x.dtype and dx.is_contiguous(
+        memory_format=_layout(x.shape))
+    assert torch.equal(dx, bn_sums_backward_ref(x, g1, g2))
+    return s1, s2, dx
 
 
 @pytest.mark.cuda
@@ -219,26 +243,26 @@ def _bn_input(shape, dtype, offset, seed, device):
     ((3, 29, 37, 41), torch.float32, 0)]      # ragged N and C
     + BN_EDGE_CASES)
 def test_bn_kernels_match_plain(cuda, shape, dtype, offset):
-    """K2 against the plain sums: f32 sums in another order, held relative
-    to sum |x| and sum x^2 at 1e-5.  K2b against the plain formula: the same
-    operations in the same order, so bit for bit."""
+    """K2 and K2b against the plain versions (``_hold_bn_kernels``), one
+    launch each; K2b within one rounding of autograd's backward of the
+    plain sums."""
     x, gen = _bn_input(shape, dtype, offset, 3, cuda)
     if offset:
         assert x.data_ptr() % 16
-    before = (launches("k2"), launches("k2b"))
-    s1, s2 = bn_sums(x)
     g1 = torch.randn(shape[1], generator=gen, device=cuda)
     g2 = torch.randn(shape[1], generator=gen, device=cuda)
-    dx = bn_sums_backward(x, g1, g2)
-    torch.cuda.synchronize()
+    before = (launches("k2"), launches("k2b"))
+    s1, s2, dx = _hold_bn_kernels(x, g1, g2)
     assert (launches("k2"), launches("k2b")) == (
         before[0] + 1, before[1] + 1)
-    r1, r2 = bn_sums_ref(x)
-    assert float(((s1 - r1).abs() / x.float().abs().sum((0, 2, 3))).max()) <= 1e-5
-    assert float(((s2 - r2).abs() / r2).max()) <= 1e-5
-    assert dx.dtype == dtype and dx.is_contiguous(
-        memory_format=torch.channels_last)
-    assert torch.equal(dx, bn_sums_backward_ref(x, g1, g2))
+    # autograd of the plain sums adds 2 g2 x as g2 x + g2 x: one rounding
+    # of the working type from K2b at most
+    xr = x.detach().requires_grad_()
+    torch.autograd.backward(bn_sums_ref(xr), (g1, g2))
+    ch = (1, -1) + (1,) * (x.dim() - 2)
+    tol = torch.finfo(dtype).eps * (g1.abs().view(ch)
+                                    + 2 * (g2.view(ch) * x.float()).abs())
+    assert float(((dx.float() - xr.grad.float()).abs() - tol).max()) <= 0.0
     again = bn_sums(x)  # no atomics: the same sums on every run
     assert torch.equal(again[0], s1) and torch.equal(again[1], s2)
 
@@ -333,7 +357,7 @@ def test_bn_backward_equals_plain_at_edge_cases(cuda, shape, dtype, offset):
     g1 = torch.randn(shape[1], generator=gen, device=cuda)
     g2 = torch.randn(shape[1], generator=gen, device=cuda)
     dx = bn_sums_backward(x, g1, g2)
-    assert dx.is_contiguous(memory_format=torch.channels_last)
+    assert dx.is_contiguous(memory_format=_layout(shape))
     assert torch.equal(dx, bn_sums_backward_ref(x, g1, g2))
 
 
@@ -368,7 +392,8 @@ def test_bn_kernels_refuse_other_layouts(cuda):
 
 
 # the normalize's cases: the GAN step's four site shapes in bf16, the
-# largest in fp16 and f32, C=1, C=21, the voxel nets' largest 5-D site, and
+# largest in fp16 and f32, the voxel and depth nets' C=1 and C=21 sites
+# (2-D and 5-D) and their largest 5-D site, and
 # views at bases off a 16-byte boundary (``offset`` elements into a flat
 # buffer): ragged C, 5-D, and a C that is a multiple of the vector width
 BN_APPLY_CASES = [((16, 64, 256, 256), torch.bfloat16, 0),
@@ -378,7 +403,10 @@ BN_APPLY_CASES = [((16, 64, 256, 256), torch.bfloat16, 0),
                   ((16, 64, 256, 256), torch.float16, 0),
                   ((16, 64, 256, 256), torch.float32, 0),
                   ((32, 1, 128, 128), torch.float32, 0),
+                  ((8, 1, 256, 256), torch.float32, 0),
+                  ((8, 1, 64, 64, 64), torch.float32, 0),
                   ((8, 21, 64, 64), torch.bfloat16, 0),
+                  ((8, 21, 256, 256), torch.float32, 0),
                   ((8, 16, 64, 64, 64), torch.float32, 0),
                   ((8, 16, 64, 64, 64), torch.bfloat16, 0),
                   ((5, 1, 7, 9), torch.bfloat16, 1),
@@ -623,19 +651,108 @@ def test_toy_train_step_on_card_matches_cpu(cuda):
                                            atol=2e-4, err_msg=k)
     finally:
         torch.backends.cudnn.allow_tf32 = saved
+    _assert_nets_agree(on_card, on_cpu, 2, 2e-4)
+
+
+def _assert_nets_agree(got, want, updates: int, lr: float) -> None:
+    """The three nets of two GAN systems after ``updates`` Adam updates
+    each agree by ``parallel.dryrun.params_agree``."""
+    from mmhand_torch.parallel.dryrun import params_agree
+
     for name in ("generator", "d_pb", "d_pp"):
-        a = getattr(on_card, name).state_dict()
-        b = getattr(on_cpu, name).state_dict()
-        outside = total = 0
-        for k, v in b.items():
-            if k.endswith("num_batches_tracked"):
-                continue
-            diff = (a[k].cpu() - v).abs()
-            atol = 1e-5 if "running" in k else 2e-5
-            outside += int((diff > atol + 1e-3 * v.abs()).sum())
-            total += v.numel()
-            assert float(diff.max()) <= 2 * 2e-4 * 2, f"{name}.{k}"
-        assert outside <= 0.005 * total, f"{name}: {outside} of {total}"
+        ok, line = params_agree(getattr(got, name).state_dict(),
+                                getattr(want, name).state_dict(), updates, lr)
+        assert ok, f"{name}: {line}"
+
+
+def _state_gap(a, b) -> tuple[bool, float]:
+    """(every leaf equal, max |a - b| over the floating-point tensors) of two
+    state trees of one structure."""
+    if isinstance(b, dict):
+        gaps = [_state_gap(a[k], b[k]) for k in b]
+    elif isinstance(b, (list, tuple)):
+        gaps = [_state_gap(x, y) for x, y in zip(a, b)]
+    elif isinstance(b, torch.Tensor):
+        gap = (float((a.cpu().double() - b.cpu().double()).abs().max())
+               if b.is_floating_point() and b.numel() else 0.0)
+        return torch.equal(a.cpu(), b.cpu()), gap
+    else:
+        return a == b, 0.0
+    return all(g[0] for g in gaps), max([g[1] for g in gaps], default=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("padding", ["zero", "reflect"])
+def test_toy_resume_on_card_equals_unbroken_run(cuda, padding, tmp_path,
+                                                record_property):
+    """Toy size on the card, f32 with TF32 off, deterministic cuDNN and
+    torch's deterministic algorithms (warn only), dropout and pools on: 3
+    steps, a save, a fresh system restored, 3 more steps, against 6 steps
+    without a break, twice.  The random streams and the step match
+    exactly; the rest bit for bit wherever the two unbroken runs agree, and
+    else as the toy step holds the card against the CPU.  The ops torch
+    names as having no deterministic CUDA implementation are recorded (the
+    reflect pad's backward sums with atomics)."""
+    import warnings
+
+    from mmhand_torch.utils.checkpoint import CheckpointManager
+
+    cfg = Config(model=ModelConfig(fine_size=32, ngf=8, ndf=8, g_n_blocks=2,
+                                   n_layers_d=2, padding_type=padding),
+                 optim=OptimConfig(pool_size=4),
+                 data=DataConfig(dataset="synthetic"),
+                 precision=PrecisionConfig(compute_dtype="float32"))
+    lr = cfg.optim.lr
+    rng = np.random.RandomState(0)
+    batches = [{k: torch.from_numpy(rng.uniform(-1, 1, (2, 32, 32, c)).astype(
+        np.float32)).to(cuda) for k, c in (("H1", 3), ("P1", 21), ("D1", 3),
+                                           ("H2", 3), ("P2", 21), ("D2", 3))}
+               for _ in range(6)]
+    ckpt = CheckpointManager(str(tmp_path), "toy")
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            runs = []
+            for _ in range(2):
+                system = build_system(cfg, cuda)
+                step = make_train_step(system)
+                runs.append(([step(b, lr) for b in batches], system))
+            system = build_system(cfg, cuda)
+            step = make_train_step(system)
+            metrics = [step(b, lr) for b in batches[:3]]
+            ckpt.save(system, "latest")
+            system = build_system(cfg, cuda)
+            ckpt.restore(system, "latest")
+            step = make_train_step(system)
+            metrics += [step(b, lr) for b in batches[3:]]
+    finally:
+        torch.use_deterministic_algorithms(False)
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    record_property("nondeterministic", sorted({
+        str(w.message).split(" does not have")[0] for w in caught
+        if "deterministic implementation" in str(w.message)}))
+    (want, unbroken), (again, twice) = runs
+    rest, got = unbroken.state_dict(), system.state_dict()
+    assert got["step"] == rest["step"]
+    for key in ("rng_pool", "rng_cuda", "rng_cpu"):
+        assert torch.equal(got["rank"][key], rest["rank"][key]), key
+    same, gap = _state_gap((metrics, got), (want, rest))
+    same2, gap2 = _state_gap((again, twice.state_dict()), (want, rest))
+    record_property("resumed_gap", gap)
+    record_property("unbroken_gap", gap2)
+    assert same or not same2, f"the unbroken runs agree, the resumed one by {gap}"
+    for m, w in zip(metrics, want):
+        for k, v in w.items():
+            np.testing.assert_allclose(float(m[k]), float(v), rtol=2e-4,
+                                       atol=2e-4, err_msg=k)
+    _assert_nets_agree(system, unbroken, 6, lr)
 
 
 def _profiled(fn):
@@ -902,9 +1019,56 @@ def test_jointsmap_kernel_checks_its_input(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("source", ["synthetic", "rhd"])
+def test_kernels_on_the_paths_keypoints_match_plain(cuda, source, tmp_path):
+    """K1 and K3 on the keypoints the paths render, at their shapes: the
+    synthetic set's first batch (generation and training at sigma 6; the
+    baselines' jointsmaps at batch 8, depth / 700 * 255) and an RHD-layout
+    tree's (the HPE step at sigma 5, batch 32; PATN2 scoring at sigma 6).
+    K1 within 1e-6 of its plain version off the clip boundary and 0
+    wherever it skipped; K3 bit for bit against its plain version on the
+    CPU."""
+    from mmhand_torch.data import HostLoader, build_dataset
+    from mmhand_torch.data.rhd_tree import write_rhd_tree
+    from mmhand_torch.hpe import HPEMixDataset
+
+    if source == "synthetic":
+        cfg = Config(model=ModelConfig(fine_size=256),
+                     data=DataConfig(dataset="synthetic"), is_train=False)
+        raw = next(iter(HostLoader(build_dataset(cfg), 16, shuffle=False,
+                                   max_items=16).epoch(0)))
+        heat = [(raw["src_uv"], 6.0), (raw["tgt_uv"], 6.0)]
+        uv = torch.from_numpy(raw["tgt_uv"][:8])
+        z = torch.from_numpy((np.asarray(raw["tgt_z"][:8]) / 700.0 * 255.0
+                              ).astype(np.float32))
+        got = generate_jointsmap(uv.to(cuda), z.to(cuda), 256, 256)
+        assert torch.equal(got.cpu(), generate_jointsmap_ref(uv, z, 256, 256))
+    else:
+        tree = write_rhd_tree(tmp_path / "rhd", 32, 256, 0)
+        cfg = Config(model=ModelConfig(fine_size=256),
+                     data=DataConfig(dataset="RHD", dataroot=tree))
+        uv = HPEMixDataset(cfg).batch(range(32))["uv"]
+        heat = [(uv, 5.0), (uv, 6.0)]
+    for uv, sigma in heat:
+        uv = torch.from_numpy(np.asarray(uv, np.float32))
+        got = gaussian_heatmaps(uv.to(cuda), 256, 256, sigma).cpu()
+        want = gaussian_heatmaps_ref(uv, 256, 256, sigma)
+        skipped = skipped_elements(uv, 256, 256, sigma)
+        assert not bool(got[skipped].any())
+        keep = _off_clip_boundary(uv.numpy(), 256, 256, sigma)
+        assert keep.mean() > 1 - 1e-3
+        np.testing.assert_allclose(np.where(keep, got.numpy(), 0),
+                                   np.where(keep, want.numpy(), 0),
+                                   rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
 def test_evaluator_on_card_matches_cpu(cuda):
-    """The conditioning image exactly; Inception, SSIM and the judge's z in
+    """The conditioning image exactly; Inception, SSIM, the judge's
+    heatmaps (every stage, within 1e-4 of their largest value) and its z in
     float32 with TF32 off, to 1e-4 (conv taps summed in another order)."""
+    from mmhand_torch.eval.evaluator import full_fp32
+
     uv, z = _jointsmap_case("poses", 2, 64, 64, seed=3)
     xyz = torch.cat([uv, z[..., None]], -1)
     cond = Evaluator.create_input_image(xyz.to(cuda), 64)
@@ -929,6 +1093,11 @@ def test_evaluator_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(on_card.judge.predict(pred.to(cuda))[2].cpu().numpy(),
                                on_cpu.judge.predict(pred)[2].numpy(),
                                rtol=1e-4, atol=1e-4 * 64)
+    with full_fp32():
+        stages = zip(on_card.judge.hpm2d(pred.to(cuda)), on_cpu.judge.hpm2d(pred))
+        for a, b in stages:
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0,
+                                       atol=1e-4 * float(b.abs().max()))
 
 
 def adam_step_bound(t: int, beta1: float, beta2: float) -> float:
@@ -1119,34 +1288,53 @@ def _on_card(net, cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["patn2", "pose_resnet50"])
+@pytest.mark.parametrize("arch", ["patn2", "nlayer", "pixel", "generator",
+                                  "pose_resnet50"])
 def test_zoo_forward_on_card_matches_cpu(cuda, arch):
-    """PATN2Stream (full width) and PoseResNet-50 in eval mode, float32
-    with TF32 off, to 1e-4 (conv taps summed in another order)."""
+    """PATN2Stream, NLayerDiscriminator and PixelDiscriminator (full width),
+    a toy MM-Hand generator (ngf 8, 2 blocks) and PoseResNet-50 in eval
+    mode, float32 with TF32 off, to 1e-4 (conv taps summed in another
+    order)."""
     from mmhand_torch.eval.evaluator import full_fp32
-    from mmhand_torch.models.baselines import PATN2Stream
+    from mmhand_torch.models.baselines import (
+        NLayerDiscriminator,
+        PATN2Stream,
+        PixelDiscriminator,
+    )
+    from mmhand_torch.models.generator import Generator
     from mmhand_torch.models.layers import init_weights
 
     rng = np.random.RandomState(5)
-    if arch == "patn2":
+    if arch == "pose_resnet50":
+        net = make_test_pose_resnet(50).eval()
+        x = torch.from_numpy(rng.uniform(-1, 1, (2, 128, 128, 3)).astype(np.float32))
+    else:
+        make = {"patn2": PATN2Stream, "nlayer": NLayerDiscriminator,
+                "pixel": PixelDiscriminator,
+                "generator": functools.partial(Generator, ngf=8,
+                                               n_blocks=2)}[arch]
         gen = torch.Generator().manual_seed(1)
-        net = init_weights(PATN2Stream(compute_dtype=None), "normal", gen).eval()
+        net = init_weights(make(compute_dtype=None), "normal", gen).eval()
         with torch.no_grad():  # a real signal, tanh not saturated
             for m in net.modules():
                 if isinstance(m, torch.nn.BatchNorm2d):
                     m.running_mean.normal_(0, 0.05, generator=gen)
                     m.running_var.uniform_(0.1, 1.0, generator=gen)
-        x = (torch.from_numpy(rng.uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32)),
-             torch.from_numpy(rng.uniform(0, 1, (2, 64, 64, 42)).astype(np.float32)))
-    else:
-        net = make_test_pose_resnet(50).eval()
-        x = (torch.from_numpy(rng.uniform(-1, 1, (2, 128, 128, 3)).astype(np.float32)),)
+        x = torch.from_numpy(rng.uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32))
+        if arch in ("patn2", "generator"):  # the poses; the generator's depths
+            x = (x, torch.from_numpy(rng.uniform(0, 1, (2, 64, 64, 42)).astype(
+                np.float32)))
+        if arch == "generator":
+            x += (torch.from_numpy(rng.uniform(-1, 1, (2, 64, 64, 6)).astype(
+                np.float32)),)
     card = _on_card(net, cuda)
     with full_fp32():
-        want = net(x if arch == "patn2" else x[0])
-        got = card(tuple(a.to(cuda) for a in x) if arch == "patn2"
-                   else x[0].to(cuda))
-    assert got.shape == want.shape and got.std() > 1e-3
+        want = net(x)
+        got = card(tuple(a.to(cuda) for a in x) if isinstance(x, tuple)
+                   else x.to(cuda))
+    assert got.shape == want.shape
+    if arch not in ("nlayer", "pixel"):
+        assert got.std() > 1e-3
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
                                atol=1e-4)
 
@@ -1209,24 +1397,13 @@ def test_bn_kernels_on_5d_input_match_plain(cuda, shape, dtype):
     (16), held as ``test_bn_kernels_match_plain`` holds them; a 5-D tensor
     in another layout raises."""
     channels = shape[1]
-    gen = torch.Generator(device=cuda).manual_seed(channels)
-    x = (torch.randn(shape, generator=gen, device=cuda) * 1.5 + 0.3).to(
-        dtype).contiguous(memory_format=torch.channels_last_3d)
-    before = (launches("k2"), launches("k2b"))
-    s1, s2 = bn_sums(x)
+    x, gen = _bn_input(shape, dtype, 0, channels, cuda)
     g1 = torch.randn(channels, generator=gen, device=cuda)
     g2 = torch.randn(channels, generator=gen, device=cuda)
-    dx = bn_sums_backward(x, g1, g2)
-    torch.cuda.synchronize()
+    before = (launches("k2"), launches("k2b"))
+    _hold_bn_kernels(x, g1, g2)
     assert (launches("k2"), launches("k2b")) == (
         before[0] + 1, before[1] + 1)
-    r1, r2 = bn_sums_ref(x)
-    axes = (0, 2, 3, 4)
-    assert float(((s1 - r1).abs() / x.float().abs().sum(axes)).max()) <= 1e-5
-    assert float(((s2 - r2).abs() / r2).max()) <= 1e-5
-    assert dx.dtype == dtype and dx.is_contiguous(
-        memory_format=torch.channels_last_3d)
-    assert torch.equal(dx, bn_sums_backward_ref(x, g1, g2))
     if channels > 1:
         with pytest.raises(ValueError, match="channels_last"):
             bn_sums(x.contiguous())
@@ -1383,3 +1560,181 @@ def test_v2v_voxelization_on_card_matches_cpu(cuda):
                     | edge_voxels(want[1].numpy(), size, 1e-4))
         assert not (hand_differ & ~boundary).any()
         assert float(want[2].sum()) > 21
+
+
+# each net as its path runs it: (its train-mode BatchNorm calls, batch,
+# input shapes); PoseResNet-50 and the 2D baselines in bf16, the voxel and
+# depth nets in f32
+NET_BN_CASES = {
+    "PoseResNet-50": (56, [(32, 256, 256, 3)]),
+    "NLayerDiscriminator": (3, [(8, 256, 256, 3)]),
+    "PixelDiscriminator": (1, [(8, 256, 256, 3)]),
+    "PATN2Stream": (35, [(8, 256, 256, 3), (8, 256, 256, 42)]),
+    "VoxelGenerator": (31, [(8, 64, 64, 64, 1)]),
+    "VoxelDiscriminator": (4, [(8, 64, 64, 64, 2)]),
+    "DepthGenerator": (5, [(32, 42)]),
+    "DepthDiscriminator": (3, [(8, 256, 256, 1)])}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(NET_BN_CASES))
+def test_bn_kernels_on_net_inputs_match_plain(cuda, name):
+    """K2 and K2b on every train-mode BatchNorm input of a net at the width,
+    batch and type its path runs it (``_hold_bn_kernels``): real
+    activations, in the layouts and at the strides the nets give them."""
+    from mmhand_torch.models import baselines, voxel_nets
+    from mmhand_torch.models.layers import init_lecun_normal, init_weights
+
+    sites, shapes = NET_BN_CASES[name]
+    gen = torch.Generator().manual_seed(0)
+    if name == "PoseResNet-50":
+        net = make_test_pose_resnet(50, torch.bfloat16)
+    elif hasattr(baselines, name):
+        net = init_weights(getattr(baselines, name)(compute_dtype=None),
+                           "normal", gen)
+        net.compute_dtype = torch.bfloat16
+    else:
+        net = init_lecun_normal(getattr(voxel_nets, name)(), gen)
+    layout = torch.channels_last_3d if name.startswith("Voxel") else (
+        torch.channels_last)
+    net = net.to(device=cuda, memory_format=layout).train()
+    on_card = torch.Generator(device=cuda).manual_seed(1)
+    x = [torch.rand(shape, generator=on_card, device=cuda) * 2 - 1
+         for shape in shapes]
+    inputs = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: inputs.append(args[0].detach()))
+        for m in net.modules() if isinstance(m, (BatchNorm2d, BatchNorm3d))]
+    try:
+        with torch.no_grad():
+            net(tuple(x) if len(x) > 1 else x[0])
+    finally:
+        for h in hooks:
+            h.remove()
+    assert len(inputs) == sites
+    for t in inputs:
+        c = t.shape[1]
+        _hold_bn_kernels(t, torch.randn(c, generator=on_card, device=cuda),
+                         torch.randn(c, generator=on_card, device=cuda))
+
+
+@pytest.mark.cuda
+def test_pose_search_on_card_matches_cpu(cuda):
+    """knn_pose_distance (k 25) over 76,375 random poses, MSRA15's count, in
+    float64: the card's indices are the CPU's, its distances within
+    1e-12."""
+    from mmhand_torch.eval.pose_search import knn_pose_distance
+
+    rng = np.random.RandomState(0)
+    database = rng.normal(0, 40, (76375, 21, 3))
+    query = rng.normal(0, 40, (21, 3))
+    idx, dist = knn_pose_distance(query, database, 25, device=cuda)
+    want_idx, want_dist = knn_pose_distance(query, database, 25, device="cpu")
+    np.testing.assert_array_equal(idx, want_idx)
+    np.testing.assert_allclose(dist, want_dist, rtol=0, atol=1e-12)
+
+
+def _hand3d_records(n: int, size: int, seed: int) -> dict:
+    """Raw hand3d records at ``size`` px: left- or right-hand pixels in each
+    mask, most keypoints visible."""
+    rng = np.random.RandomState(seed)
+    parts = np.zeros((n, size, size), np.uint8)
+    for i in range(n):
+        y, x = rng.randint(0, size // 2, 2)
+        parts[i, y:y + size // 3, x:x + size // 3] = 5 if i % 2 else 20
+    return {"keypoint_xyz": rng.normal(size=(n, 42, 3)).astype(np.float32),
+            "keypoint_uv": rng.uniform(size * 0.1, size * 0.9,
+                                       (n, 42, 2)).astype(np.float32),
+            "cam_mat": np.tile(np.eye(3, dtype=np.float32) * size, (n, 1, 1)),
+            "image": rng.randint(0, 256, (n, size, size, 3)).astype(np.uint8),
+            "hand_parts": parts, "keypoint_vis": rng.rand(n, 42) > 0.2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["HandSegNet", "PoseNet2D", "PosePrior",
+                                  "ViewpointNet", "PosePriorNetwork",
+                                  "ColorHandPose3D"])
+def test_hand3d_nets_on_card_match_cpu(cuda, name):
+    """The hand3d nets and the whole ColorHandPose3D at 64 px in eval mode,
+    float32 with TF32 off: every output within 1e-4 of its largest value
+    (conv taps summed in another order); the pipeline's crop scale and
+    centre equal."""
+    from mmhand_torch.eval.evaluator import full_fp32
+    from mmhand_torch.models import hand3d
+
+    rng = np.random.RandomState(0)
+    image = torch.from_numpy(rng.uniform(-0.5, 0.5, (2, 64, 64, 3))
+                             .astype(np.float32))
+    maps = torch.from_numpy(rng.uniform(0, 1, (2, 64, 64, 21))
+                            .astype(np.float32))
+    side = torch.tensor([[1.0, 0.0], [0.0, 1.0]])
+    make, args = {
+        "HandSegNet": (hand3d.HandSegNet, (image,)),
+        "PoseNet2D": (hand3d.PoseNet2D, (image,)),
+        "PosePrior": (functools.partial(hand3d.PosePrior, in_size=8),
+                      (maps[:, :8, :8], side)),
+        "ViewpointNet": (functools.partial(hand3d.ViewpointNet, in_size=8),
+                         (maps[:, :8, :8], side)),
+        "PosePriorNetwork": (functools.partial(hand3d.PosePriorNetwork,
+                                               crop_size=64), (maps, side)),
+        "ColorHandPose3D": (functools.partial(hand3d.ColorHandPose3D,
+                                              crop_size=64), (image, side)),
+    }[name]
+    net = hand3d.init_hand3d(make(), torch.Generator().manual_seed(0)).eval()
+    if name == "ColorHandPose3D":
+        with torch.no_grad():
+            # a decisive segmentation head, so the mask and its box do not
+            # hang on logits within rounding of each other
+            net.HandSegNet.conv6_2.conv.weight.mul_(1e4)
+    card = copy.deepcopy(net).to(cuda)
+    with full_fp32():
+        want = net(*args)
+        got = card(*(a.to(cuda) for a in args))
+    pairs = (list(zip(got, want)) if isinstance(want, (list, tuple))
+             else [(got, want)])
+    assert pairs
+    for i, (g, w) in enumerate(pairs):
+        if w is None:
+            continue
+        if name == "ColorHandPose3D" and i in (2, 3):  # scale, centre
+            assert torch.equal(g.cpu(), w), i
+        else:
+            rel = float((g.cpu() - w).abs().max() / (w.abs().max() + 1e-30))
+            assert rel <= 1e-4, (i, rel)
+
+
+@pytest.mark.cuda
+def test_hand3d_image_ops_and_derive_batch_on_card_match_cpu(cuda):
+    """single_obj_scoremap bit for bit; crop_and_resize within 1e-4 (the
+    card divides by a Python scalar as a multiply by its reciprocal: sample
+    positions a few ulps apart); derive_batch (hand crop) within 1e-5 +
+    1e-5 |x|, its hand side, masks and visibility equal."""
+    from mmhand_torch.eval.evaluator import full_fp32
+    from mmhand_torch.hand3d import PipelineConfig, derive_batch
+    from mmhand_torch.ops import hand3d_image
+
+    rng = np.random.RandomState(1)
+    logits = torch.from_numpy(rng.normal(size=(2, 64, 64, 2)).astype(np.float32))
+    logits[:, 10:30, 20:40, 1] += 6.0
+    image = torch.from_numpy(rng.uniform(-0.5, 0.5, (2, 64, 64, 3))
+                             .astype(np.float32))
+    boxes = torch.tensor([[0.1, -0.2, 0.7, 0.9], [-0.3, 0.2, 0.8, 1.4]])
+    with full_fp32():
+        mask = hand3d_image.single_obj_scoremap(logits)
+        assert 0 < float(mask.sum()) < mask.numel()
+        assert torch.equal(
+            hand3d_image.single_obj_scoremap(logits.to(cuda)).cpu(), mask)
+        want = hand3d_image.crop_and_resize(image, boxes, 48)
+        got = hand3d_image.crop_and_resize(image.to(cuda), boxes.to(cuda), 48)
+        assert float((got.cpu() - want).abs().max()) <= 1e-4
+    raw = _hand3d_records(4, 64, 0)
+    cfg = PipelineConfig(image_size=(64, 64), crop_size=32,
+                         use_wrist_coord=False, hand_crop=True)
+    want = derive_batch(raw, cfg, torch.Generator(), "cpu")
+    got = derive_batch(raw, cfg, torch.Generator(device=cuda), cuda)
+    for k, w in want.items():
+        g = got[k].cpu()
+        if w.dtype in (torch.bool, torch.int32):
+            assert torch.equal(g, w), k
+        else:
+            assert float(((g - w).abs() - 1e-5 - 1e-5 * w.abs()).max()) <= 0, k

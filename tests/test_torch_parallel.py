@@ -28,7 +28,7 @@ from mmhand_torch.convert import (
 )
 from mmhand_torch.models.layers import BatchNorm2d
 from mmhand_torch.parallel import init_distributed
-from mmhand_torch.parallel.dryrun import dryrun_multichip, launch
+from mmhand_torch.parallel.dryrun import dryrun_multichip, launch, params_agree
 from mmhand_torch.parallel.sharding import flat_grads
 from mmhand_torch.train.state import build_system
 from mmhand_torch.utils.checkpoint import CheckpointManager
@@ -56,6 +56,7 @@ from mmhand_torch.models.layers import BatchNorm2d, NormConfig
 from mmhand_torch.parallel import init_distributed
 from mmhand_torch.train.state import build_system
 from mmhand_torch.train.step import make_train_step
+from mmhand_torch.utils import trace
 from mmhand_torch.utils.checkpoint import CheckpointManager
 
 case, tmp = sys.argv[1], sys.argv[2]
@@ -101,8 +102,12 @@ if case == "syncbn":
     out["fake"] = g(tuple(half(x) for x in data["g_in"])).detach()
 elif case == "dpstep":
     s = system()
+    trace.enable()
     m = make_train_step(s)({k: half(v) for k, v in data["batch"].items()}, 2e-4)
-    out.update(nets=net_dicts(s), metrics={k: float(v) for k, v in m.items()})
+    spans = sorted(trace.spans(), key=lambda sp: sp.start_ns)
+    out.update(nets=net_dicts(s), metrics={k: float(v) for k, v in m.items()},
+               phases=[(sp.name, [c.name for c in spans if c.parent == sp.id])
+                       for sp in spans if sp.name in ("g_phase", "d_phase")])
 elif case == "overflow":
     s = system(scaling=True)
     before = net_dicts(s)
@@ -249,7 +254,9 @@ def test_dp_step_matches_jax_full_batch(tmp_path):
     """One DP step on 2 ranks (pool 0, dropout off, f32) against JAX's
     single-device step on the whole batch: the losses, and every parameter
     and running statistic after the three Adam updates (the twin of
-    tests/test_train.py:215).  Both ranks end with the same networks."""
+    tests/test_train.py:215).  Both ranks end with the same networks, and
+    each phase of each rank exchanged its gradients in an ``allreduce``
+    span between its ``backward`` and its ``adam``."""
     system, state, nets = _jax_init()
     batch = _batch()
     step = jax.jit(jstep.make_train_step(system, None))
@@ -260,6 +267,10 @@ def test_dp_step_matches_jax_full_batch(tmp_path):
         np.testing.assert_allclose(outs[0]["metrics"][k], float(v), rtol=2e-4,
                                    atol=2e-4, err_msg=k)
     assert outs[0]["metrics"] == outs[1]["metrics"]
+    update = ["backward", "allreduce", "adam"]
+    for o in outs:
+        assert o["phases"] == [("g_phase", update), ("d_phase", update),
+                               ("d_phase", update)]
     want_nets = {
         "generator": generator_state_dict_from_jax(
             {"params": _numpy(after.g.params),
@@ -362,3 +373,34 @@ def test_missing_gradient_and_environment_raise(monkeypatch):
         monkeypatch.delenv(k, raising=False)
     with pytest.raises(RuntimeError, match="torch.distributed.run"):
         init_distributed("cpu")
+
+
+@pytest.mark.parametrize("change,agree", [
+    ("none", True),
+    ("one_outside", True),      # 1 of 1,100 elements: within the 0.5%
+    ("ten_outside", False),     # 10 of 1,100: beyond it
+    ("one_far", False),         # past 2 lr an update
+    ("weights_inside", True),   # every weight 1.5e-5 off: inside 2e-5
+    ("running_outside", False),  # running statistics 1.5e-5 off: past 1e-5
+])
+def test_params_agree_holds_the_update_rule(change, agree):
+    gen = torch.Generator().manual_seed(0)
+    want = {"w": torch.randn(1000, generator=gen),
+            "bn.running_mean": torch.zeros(100),
+            "bn.num_batches_tracked": torch.tensor(3)}
+    got = {k: v.clone() for k, v in want.items()}
+    got["bn.num_batches_tracked"] += 1  # not compared
+    lr, updates = 1e-3, 2
+    if change == "one_outside":
+        got["w"][0] += 1e-3
+    elif change == "ten_outside":
+        got["w"][:10] += 1e-3 + 1e-3 * want["w"][:10].abs()
+    elif change == "one_far":
+        got["w"][0] += 2.5 * lr * updates
+    elif change == "running_outside":
+        got["bn.running_mean"] += 1.5e-5
+    elif change == "weights_inside":
+        got["w"] += 1.5e-5
+    ok, line = params_agree(got, want, updates, lr)
+    assert ok is agree, line
+

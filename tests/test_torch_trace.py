@@ -15,6 +15,10 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from mmhand_torch import config as tcfg
 from mmhand_torch.data import HostLoader, build_dataset
+from mmhand_torch.hand3d import Hand3DSystem, make_hand3d_train_step
+from mmhand_torch.hand3d.system import TRAIN_PARA_POSENET
+from mmhand_torch.hpe import HPESystem, make_hpe_train_step
+from mmhand_torch.parallel.dryrun import hpe_batch, rank_slice
 from mmhand_torch.parallel.sharding import collective_launches
 from mmhand_torch.scripts.train import kernel_launches
 from mmhand_torch.train.state import build_generator, build_system
@@ -129,6 +133,72 @@ def test_train_step_records_its_span_tree(recording):
             assert parent.start_ns <= s.start_ns <= s.end_ns <= parent.end_ns
     assert len({s.step for s in spans}) == 1 and root.step is not None
     assert len(spans) == 12
+
+
+def _tree(spans, parent=None):
+    """The spans under ``parent`` in the order they began, each as (name,
+    the tree under it)."""
+    return [(s.name, _tree(spans, s.id))
+            for s in sorted(spans, key=lambda s: s.start_ns)
+            if s.parent == parent]
+
+
+UPDATE = [("backward", []), ("adam", [])]
+
+
+def _train_step_case(kind):
+    """One train step of ``kind`` as a function of nothing, the optimizers
+    it updates, the learning rate each must hold after it, and the step's
+    span tree."""
+    lr = 3e-4  # not any optimizer's initial rate
+    if kind == "gan":
+        torch.manual_seed(0)
+        system = build_system(_config(), "cpu")
+        step = make_train_step(system)
+        tree = [("step", [("g_phase", UPDATE), ("replay", []),
+                          ("d_phase", UPDATE), ("replay", []),
+                          ("d_phase", UPDATE)])]
+        return (lambda: step(_batch(), lr),
+                (system.opt_g, system.opt_d_pp, system.opt_d_pb), lr, tree)
+    if kind in ("hpm", "hpm3d"):
+        cfg = tcfg.Config(model=tcfg.ModelConfig(fine_size=32),
+                          precision=tcfg.PrecisionConfig(
+                              compute_dtype="float32"))
+        system = HPESystem(cfg, kind, "cpu")
+        step = make_hpe_train_step(system)
+        batch = rank_slice(hpe_batch(2), 0)
+        opts = [o for o in (system.opt2d, system.opt3d) if o is not None]
+        return (lambda: step(batch, lr), opts, lr,
+                [("step", UPDATE * len(opts))])
+    # posenet from the step where its schedule first lowers the rate
+    system = Hand3DSystem("posenet", crop_size=32, device="cpu", seed=1)
+    system.step = TRAIN_PARA_POSENET["lr_iter"][0]
+    step = make_hand3d_train_step(system)
+    r = np.random.RandomState(5)
+    batch = {"image": torch.from_numpy(
+                 r.uniform(-0.5, 0.5, (2, 32, 32, 3)).astype(np.float32)),
+             "scoremap": torch.from_numpy(
+                 r.uniform(0, 1, (2, 32, 32, 21)).astype(np.float32)),
+             "keypoint_vis21": torch.from_numpy(r.uniform(size=(2, 21)) > 0.2)}
+    return (lambda: step(batch), (system.opt,), TRAIN_PARA_POSENET["lr"][1],
+            [("step", [("hand3d.forward", [])] + UPDATE)])
+
+
+@pytest.mark.parametrize("kind", ["gan", "hpm", "hpm3d", "posenet"])
+def test_each_train_step_updates_through_the_shared_spans(recording, kind):
+    """The GAN, HPE and posenet steps each begin one step and update every
+    net through ``train.state.backward_and_step`` (``backward``, then
+    ``adam``; ``allreduce`` only over several ranks), and leave each
+    optimizer at the step's learning rate."""
+    step, opts, lr, tree = _train_step_case(kind)
+    metrics = step()
+    assert all(np.isfinite(float(v)) for v in (
+        metrics.values() if isinstance(metrics, dict) else [metrics]))
+    spans = recording.spans()
+    assert _tree(spans) == tree
+    assert len({s.step for s in spans}) == 1
+    assert [g["lr"] for o in opts for g in o.param_groups] == [lr] * sum(
+        len(o.param_groups) for o in opts)
 
 
 def test_eval_step_and_png_encode(recording, tmp_path):
