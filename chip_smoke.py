@@ -9,13 +9,14 @@ a full-width drive of every user path.
    events, its device time by the profiler, its plain version's time, the
    one PyTorch call that computes the same function where there is one, and
    its bound (``benchmark.roofline``): K1 (heatmaps), K2 (BatchNorm sums),
-   K2b (their backward), the train-mode normalize (``bn_apply``) and K3
-   (the jointsmap rasterizer).  Each is held against its plain version
-   at the shape it is timed at: K1 within 1e-6 off the clip boundary and
-   0 where it skips, K2 within 1e-5 of sum |x| and sum x^2, K2b bit for
-   bit, K3 bit for bit against the CPU, the normalize within a few
-   roundings.  K2 and the normalize are also timed at the main paths'
-   BatchNorm sites by CUDA graphs, beside torch's own BatchNorm kernels.
+   K2b (their backward), the train-mode normalize (``bn_apply``), the
+   reflect pad (``reflect_pad``) and K3 (the jointsmap rasterizer).  Each
+   is held against its plain version at the shape it is timed at: K1
+   within 1e-6 off the clip boundary and 0 where it skips, K2 within 1e-5
+   of sum |x| and sum x^2, K2b bit for bit, K3 bit for bit against the
+   CPU, the normalize within a few roundings, the pad and its backward
+   bit for bit.  K2, the normalize and the pad are also timed at the main
+   paths' sites by CUDA graphs, beside the torch kernels they replace.
 3. Drives every user path at full width through its script's ``main()``
    (or the library call a path has no script for), with the checks along
    it (losses, scores and parameters finite, nets moved, files written)
@@ -30,7 +31,12 @@ a full-width drive of every user path.
    (PoseResNet-50, the PatchGANs, PATN2, every init_type); hand3d
    (``train_hand3d``, ``create_hand3d_db``, ``eval_hand3d``,
    ``run_hand3d``, ``handpose_judge``); the MSRA/V2V group.  Each path's
-   launches of the normalize's two kernels must equal K2's and K2b's.
+   launches of the normalize's two kernels must equal K2's and K2b's; each
+   path that runs a net with reflect padding (the GAN's train, resume,
+   fp16, NCCL, generation, evaluation and kill-and-resume paths, the
+   ResNet and PATN2 baselines) launches the pad once per site, and the
+   HPE, preprocessing, export, PoseResNet, hand3d and MSRA/V2V paths not
+   at all.
 
 Every other check has its own home: each kernel's sweep over shapes,
 types and edge cases, and the card against the CPU, in
@@ -68,6 +74,7 @@ K2_REPLACES = "mmhand_tpu/ops/bn_stats.py:87"
 K2B_REPLACES = "mmhand_tpu/ops/bn_stats.py:73"
 K3_REPLACES = "mmhand_tpu/ops/jointsmap.py:115"
 BN_SOURCE = "mmhand_torch/csrc/bn_stats.cu"
+PAD_SOURCE = "mmhand_torch/csrc/reflect_pad.cu"
 # each kernel's CUDA kernels, by the names the profiler shows
 K1_KERNELS = ("gaussian_heatmaps_kernel",)
 K2_KERNELS = ("bn_sums_kernel",)
@@ -75,6 +82,8 @@ K2B_KERNELS = ("bn_sums_backward_kernel",)
 K3_KERNELS = ("jointsmap_kernel",)
 BN_APPLY_KERNELS = ("bn_apply_kernel",)
 BN_APPLY_BWD_KERNELS = ("bn_apply_backward_kernel",)
+PAD_KERNELS = ("reflect_pad_kernel",)
+PAD_BWD_KERNELS = ("reflect_pad_backward_kernel",)
 # the train slice: the JAX Config() flagship (ngf 64, 9 PATBlocks, 256 px),
 # batch 16, a few steps; its BatchNorms: 47 in G, 9 in each D, run once in
 # G, twice in the G loss's D forwards and twice in each D phase
@@ -135,6 +144,29 @@ GAN_BN_SITES = [((16, 64, 256, 256), 10), ((16, 128, 128, 128), 10),
                 ((16, 512, 64, 64), 16), ((16, 256, 64, 64), 65)]
 MSRA_BN_TIMED = [(8, 1, 64, 64, 64), (32, 1, 128, 128), (8, 1, 256, 256),
                  (8, 21, 256, 256), (8, 16, 64, 64, 64)]
+# the flagship GAN step's reflect-pad sites at batch 16: (input shape,
+# type, pad, forward calls, backward calls) a step.  G pads 58 times: its
+# three f32 stems (3, 42, 6 channels, pad 3), 54 times in its PATBlocks
+# (pad 1 at 64 px: 22 on 256 channels, and 32 on the attention streams'
+# 512 from the second block on), once on the way up (64 channels, pad 3).
+# D_PB and D_PP pad 7 times each (the f32 stem on 6 or 24 channels, 6 in
+# their ResnetBlocks) in each of their three forwards a step (the G loss,
+# real, fake).  Backward: G's stems and the D phases' stems take inputs
+# that need no gradient
+GAN_PAD_SITES = [((16, 3, 256, 256), "float32", 3, 1, 0),
+                 ((16, 42, 256, 256), "float32", 3, 1, 0),
+                 ((16, 6, 256, 256), "float32", 3, 1 + 3, 1),
+                 ((16, 24, 256, 256), "float32", 3, 3, 1),
+                 ((16, 256, 64, 64), "bfloat16", 1, 22 + 36, 22 + 12 + 24),
+                 ((16, 512, 64, 64), "bfloat16", 1, 32, 32),
+                 ((16, 64, 256, 256), "bfloat16", 3, 1, 1)]
+PAD_PER_STEP = tuple(sum(site[i] for site in GAN_PAD_SITES) for i in (3, 4))
+G_PAD_SITES = 58
+# PATN2's generator: two stems, 9 PATBlocks of two streams, the up path
+PATN2_PAD_SITES = 2 + 9 * 2 * 2 + 1
+# the CycleGAN ResnetGenerator of bench_baselines: the stem, 9 ResnetBlocks
+# of two, the last conv
+RESNET_PAD_SITES = 1 + 9 * 2 + 1
 # calls per CUDA graph in graph_ms, and the L2 cache the inputs must
 # outgrow so that every call reads its input from HBM, as the bound counts
 GRAPH_CALLS = 50
@@ -767,6 +799,137 @@ def bn_apply_phase() -> list:
     return records
 
 
+def reflect_pad_bytes(shape, elem_bytes: int, p: int) -> int:
+    """Bytes the pad moves each way at an input of ``shape``: x read and y
+    written forward, dy read and dx written backward."""
+    b, c, h, w = shape
+    return b * c * (h * w + (h + 2 * p) * (w + 2 * p)) * elem_bytes
+
+
+def reflect_pad_phase() -> list:
+    """reflect_pad_kernel and reflect_pad_backward_kernel at each pad site
+    of the GAN step (``GAN_PAD_SITES``), timed by ``graph_ms`` over copies
+    past the L2 beside the bound (bytes), and summed per step.  At the
+    blocks' site, (16, 256, 64, 64) bf16, the kernel table's row: also the
+    profiler's device time and the CUDA-event time, the plain version
+    (ATen's pad and its backward) by CUDA events, and what the step ran
+    there before (nn.ReflectionPad2d and the copy of its NCHW output to
+    channels_last; ATen's backward and the copy of its NCHW gradient) by
+    graph; the forward held bit for bit against ATen's pad, the backward
+    within one rounding of its type of ATen's backward in f32, and bit for
+    bit on a second call.  Returns the two kernels' records there."""
+    import torch
+    from torch import nn
+
+    from mmhand_torch.ops.reflect_pad import (
+        reflect_pad_backward_cuda,
+        reflect_pad_forward_cuda,
+        reflect_pad_ref,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def nhwc(shape, dtype):
+        b, c, h, w = shape
+        return torch.randn(b, h, w, c, generator=gen, device="cuda").to(
+            dtype).permute(0, 3, 1, 2)
+
+    def aten_backward(x, dy, p):
+        return torch.ops.aten.reflection_pad2d_backward(dy, x, [p] * 4)
+
+    def library_forward(pad, x):
+        return pad(x).contiguous(memory_format=torch.channels_last)
+
+    def library_backward(x, dy, p):
+        return aten_backward(x, dy, p).contiguous(
+            memory_format=torch.channels_last)
+
+    block = GAN_PAD_SITES[4]
+    step = {"forward": 0.0, "backward": 0.0, "bound": 0.0}
+    records = []
+    for shape, dtype, p, n_fwd, n_bwd in GAN_PAD_SITES:
+        at_block = (shape, dtype) == block[:2]
+        dtype = getattr(torch, dtype)
+        nbytes = reflect_pad_bytes(shape, dtype.itemsize, p)
+        copies = min(GRAPH_CALLS, math.ceil(2 * L2_BYTES / nbytes) + 1)
+        padded = shape[:2] + (shape[2] + 2 * p, shape[3] + 2 * p)
+        xs = [nhwc(shape, dtype) for _ in range(copies)]
+        dys = [nhwc(padded, dtype) for _ in range(copies)]
+        pick = [(xs[i % copies], dys[i % copies]) for i in range(GRAPH_CALLS)]
+        fwd = [functools.partial(reflect_pad_forward_cuda, a, p)
+               for a, _ in pick]
+        bwd = [functools.partial(reflect_pad_backward_cuda, b, p)
+               for _, b in pick]
+        fwd_ms, bwd_ms = graph_ms(fwd), graph_ms(bwd)
+        bound_ms = bound(nbytes, 0)[0]
+        step["forward"] += n_fwd * fwd_ms
+        step["backward"] += n_bwd * bwd_ms
+        step["bound"] += (n_fwd + n_bwd) * bound_ms
+        print(f"reflect_pad x{n_fwd}/{n_bwd} a step {shape} p{p} "
+              f"{str(dtype).removeprefix('torch.')} ({nbytes / 1e6:.1f} MB "
+              f"each way, {copies} copies): forward {fwd_ms:.4f} ms, backward "
+              f"{bwd_ms:.4f} ms (graph), bound {bound_ms:.4f} ms each "
+              f"({100 * bound_ms / fwd_ms:.1f}%, "
+              f"{100 * bound_ms / bwd_ms:.1f}%)")
+        if at_block:
+            x, dy = xs[0], dys[0]
+            y, dx = fwd[0](), bwd[0]()
+            y_err = float((y.float() - reflect_pad_ref(x, p).float()).abs()
+                          .max())
+            want = aten_backward(x.float(), dy.float(), p)
+            total = aten_backward(x.float(), dy.float().abs(), p)
+            dx_err = float((dx.float() - want).abs().max())
+            within = bool(((dx.float() - want).abs()
+                           <= torch.finfo(dtype).eps / 2 * want.abs()
+                           + 5 * torch.finfo(torch.float32).eps * total)
+                          .all())
+            check(y_err == 0 and within and torch.equal(bwd[0](), dx),
+                  f"reflect_pad {shape}: {y_err} from ATen's pad, {dx_err} "
+                  f"from ATen's backward in f32 (within one rounding: "
+                  f"{within}), or a second backward differs")
+            pad = nn.ReflectionPad2d(p)
+            library = (
+                graph_ms([functools.partial(library_forward, pad, a)
+                          for a, _ in pick]),
+                graph_ms([functools.partial(library_backward, a, b, p)
+                          for a, b in pick]))
+            device = (kernel_device_ms(fwd[0], PAD_KERNELS),
+                      kernel_device_ms(bwd[0], PAD_BWD_KERNELS))
+            events = (cuda_ms(fwd[0]), cuda_ms(bwd[0]))
+            plain = (cuda_ms(lambda: reflect_pad_ref(x, p), iters=5),
+                     cuda_ms(lambda: aten_backward(x, dy, p), iters=5))
+            print(f"reflect_pad {shape} {dtype}: forward / backward device "
+                  f"{device[0]:.4f} / {device[1]:.4f} ms (profiler), "
+                  f"{events[0]:.4f} / {events[1]:.4f} ms a call (CUDA "
+                  f"events, the wrapper's host work included); plain "
+                  f"(ATen's pad) {plain[0]:.4f} / {plain[1]:.4f} ms (CUDA "
+                  f"events); before (nn.ReflectionPad2d and the layout "
+                  f"copies) {library[0]:.4f} / {library[1]:.4f} ms (graph); "
+                  f"forward bit for bit, backward {dx_err:.3g} from ATen's "
+                  f"in f32 and bit for bit on a second call")
+            records = [
+                {"name": "reflect_pad", "route": "cuda", "source": PAD_SOURCE,
+                 "replaces": None, "max_abs_err": y_err, "max_rel_err": None,
+                 "ms": fwd_ms, "plain_ms": plain[0], "bound_ms": bound_ms,
+                 "bound_by": "bytes", "library_ms": library[0],
+                 "device_ms": device[0], "skipped_share": None},
+                {"name": "reflect_pad_backward", "route": "cuda",
+                 "source": PAD_SOURCE, "replaces": None, "max_abs_err": dx_err,
+                 "max_rel_err": None, "ms": bwd_ms, "plain_ms": plain[1],
+                 "bound_ms": bound_ms, "bound_by": "bytes",
+                 "library_ms": library[1], "device_ms": device[1],
+                 "skipped_share": None}]
+        del xs, dys, pick, fwd, bwd
+    print(f"reflect_pad per GAN step ({PAD_PER_STEP[0]} forward, "
+          f"{PAD_PER_STEP[1]} backward calls): forward {step['forward']:.4f} "
+          f"ms, backward {step['backward']:.4f} ms (graph), bound "
+          f"{step['bound']:.4f} ms "
+          f"({100 * step['bound'] / (step['forward'] + step['backward']):.1f}"
+          f"%)")
+    reset_launches()  # the kernels ran here outside any path
+    return records
+
+
 def raw_batch(cfg, n):
     from mmhand_torch.data import HostLoader, build_dataset
 
@@ -800,8 +963,9 @@ def calibrate(generator, batch):
     generator.eval()
 
 
-def slice_phase(tmp: Path):
-    """The full-width generation path through aug.main; returns K1 launches."""
+def slice_phase(tmp: Path) -> dict:
+    """The full-width generation path through aug.main; returns the
+    kernels' launches there."""
     import torch
 
     from mmhand_torch.config import Config, DataConfig, ModelConfig
@@ -839,18 +1003,21 @@ def slice_phase(tmp: Path):
     reset_launches()
     with contextlib.redirect_stdout(out):
         written = aug.main(argv)
-    launches = kernel_launches()["gaussian_heatmaps"]
+    launches = kernel_launches()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     print(out.getvalue().strip())
     files = sorted((dst / "tgt").glob("*.png"))
     check(written == n_items and len(files) == n_items,
           f"{written} written, {len(files)} PNGs on disk, {n_items} expected")
-    check(launches == 2 * (n_items // gen_batch),
-          f"K1 launched {launches} times in the slice")
+    batches = n_items // gen_batch
+    check(launches["gaussian_heatmaps"] == 2 * batches
+          and {k: launches[k] for k in pad_launches(0, 0)}
+          == pad_launches(G_PAD_SITES * batches, 0),
+          f"launches in the slice: {launches}")
     check(re.search(r"([0-9.]+) images/s after the first batch",
                     out.getvalue()) is not None, "aug printed no steady rate")
     print(f"slice: {written} fakes, peak device memory {peak_gib:.2f} GiB, "
-          f"K1 launches {launches}")
+          f"launches {launches}")
 
     # what was written is the generator's output for that batch, finite
     eval_step = make_eval_step(g)
@@ -939,7 +1106,9 @@ def train_slice_phase(tmp: Path) -> dict:
     check(result.steps == steps, f"{result.steps} steps taken")
     check(launches["bn_sums"] == BN_PER_STEP * steps
           and launches["bn_sums_backward"] == BN_PER_STEP * steps
-          and launches["gaussian_heatmaps"] == 2 * steps,
+          and launches["gaussian_heatmaps"] == 2 * steps
+          and {k: launches[k] for k in pad_launches(0, 0)}
+          == pad_launches(PAD_PER_STEP[0] * steps, PAD_PER_STEP[1] * steps),
           f"launches in the train slice: {launches}")
     lines = re.findall(r"\(epoch: \d+, iters: (\d+), time: [^)]*\) (.*)",
                        out.getvalue())
@@ -998,6 +1167,11 @@ def bn_launches(forward: int, backward: int) -> dict:
     of them took a gradient."""
     return {"bn_sums": forward, "bn_sums_backward": backward,
             "bn_apply": forward, "bn_apply_backward": backward}
+
+
+def pad_launches(forward: int, backward: int) -> dict:
+    """The launches of the reflect pad and its backward."""
+    return {"reflect_pad": forward, "reflect_pad_backward": backward}
 
 
 def reset_launches() -> None:
@@ -1063,7 +1237,9 @@ def fp16_train_phase(tmp: Path) -> dict:
           f"fp16: {result.steps} steps taken")
     check(launches["bn_sums"] == BN_PER_STEP * steps
           and launches["bn_sums_backward"] == BN_PER_STEP * steps
-          and launches["gaussian_heatmaps"] == 2 * steps,
+          and launches["gaussian_heatmaps"] == 2 * steps
+          and {k: launches[k] for k in pad_launches(0, 0)}
+          == pad_launches(PAD_PER_STEP[0] * steps, PAD_PER_STEP[1] * steps),
           f"fp16 launches {launches}")
     lines = re.findall(r"\(epoch: \d+, iters: \d+, time: [^)]*\) (.*)",
                        out.getvalue())
@@ -1178,6 +1354,12 @@ def resume_phase(tmp: Path) -> dict:
     del second
     for k, v in more.items():
         launches[k] += v
+    steps = 2 * RESUME_STEPS
+    check({k: launches[k] for k in (*bn_launches(0, 0), *pad_launches(0, 0))}
+          == {**bn_launches(BN_PER_STEP * steps, BN_PER_STEP * steps),
+              **pad_launches(PAD_PER_STEP[0] * steps,
+                             PAD_PER_STEP[1] * steps)},
+          f"resume launches {launches}")
     print(f"resume: state_latest.pt {nbytes} bytes, {n_tensors} tensors "
           f"restored bit for bit; save {save_s:.3f} s, restore {restore_s:.3f} "
           f"s; the resumed run reached step {2 * RESUME_STEPS}; launches "
@@ -1268,7 +1450,10 @@ def nccl_phase(tmp: Path) -> dict:
           and all(math.isfinite(v) for v in r["metrics"].values()),
           f"NCCL world 1: {r}")
     check(launches["bn_sums"] == BN_PER_STEP * RESUME_STEPS
-          and launches["bn_sums_backward"] == BN_PER_STEP * RESUME_STEPS,
+          and launches["bn_sums_backward"] == BN_PER_STEP * RESUME_STEPS
+          and {k: launches[k] for k in pad_launches(0, 0)}
+          == pad_launches(PAD_PER_STEP[0] * RESUME_STEPS,
+                          PAD_PER_STEP[1] * RESUME_STEPS),
           f"NCCL world 1 launches {launches}")
     print(f"NCCL world size 1 (torchrun, {seconds:.1f} s with start-up): "
           f"{RESUME_STEPS} flagship steps, {r['images_per_sec']} images/s after "
@@ -1445,11 +1630,16 @@ def longrun_phase(tmp: Path) -> dict:
     check(math.isfinite(out["ssim_train_pairs"]), f"SSIM {out}")
     # K1 renders P1 and P2: two launches per step and per SSIM batch
     check(leg2 is not None and leg2["gaussian_heatmaps"] == 2 * steps2
-          and {k: leg2.get(k) for k in bn_launches(0, 0)}
-          == bn_launches(BN_PER_STEP * steps2, BN_PER_STEP * steps2),
+          and {k: leg2.get(k) for k in (*bn_launches(0, 0),
+                                        *pad_launches(0, 0))}
+          == {**bn_launches(BN_PER_STEP * steps2, BN_PER_STEP * steps2),
+              **pad_launches(PAD_PER_STEP[0] * steps2,
+                             PAD_PER_STEP[1] * steps2)},
           f"leg 2's launches {leg2}")
-    check(ssim_launches["gaussian_heatmaps"]
-          == 2 * -(-LONGRUN["items"] // TRAIN["batch"]),
+    ssim_batches = -(-LONGRUN["items"] // TRAIN["batch"])
+    check(ssim_launches["gaussian_heatmaps"] == 2 * ssim_batches
+          and {k: ssim_launches[k] for k in pad_launches(0, 0)}
+          == pad_launches(G_PAD_SITES * ssim_batches, 0),
           f"the SSIM pass's launches {ssim_launches}")
     print(f"longrun demo ({seconds:.1f} s): leg 1 {out['leg1_seconds']:.1f} s, "
           f"rc {out['leg1_returncode']} after step "
@@ -1634,9 +1824,13 @@ def eval_slice_phase(tmp: Path) -> dict:
         _check_scores(what, scores, n_items)
         batches = -(-n_items // batch)
         k3_want = batches if what.startswith("bench") else 0
+        pads = {"evaluate_gan": G_PAD_SITES, "bench_baselines resnet":
+                RESNET_PAD_SITES, "bench_baselines unet": 0}[what]
         check(launches["generate_jointsmap"] == k3_want
               and launches["gaussian_heatmaps"] == 2 * batches
-              and launches["bn_sums"] == launches["bn_sums_backward"] == 0,
+              and launches["bn_sums"] == launches["bn_sums_backward"] == 0
+              and {k: launches[k] for k in pad_launches(0, 0)}
+              == pad_launches(pads * batches, 0),
               f"{what}: launches {launches}")
         print(f"{what}: {n_items} images at batch {batch} in {seconds:.3f} s "
               f"(FID's 2048-d sqrtm on the host included), "
@@ -1750,7 +1944,7 @@ def hpe_train_phase(tmp: Path) -> tuple[dict, Path]:
           and cfg.data.augmentation_ratio == 1.0, "HPE config")
     check(result.steps == steps, f"HPE: {result.steps} steps")
     check(launches == {"gaussian_heatmaps": steps, **bn_launches(0, 0),
-                       "generate_jointsmap": 0},
+                       **pad_launches(0, 0), "generate_jointsmap": 0},
           f"HPE launches {launches}")
     lines = re.findall(r"\(epoch: \d+, iters: (\d+), time: [^)]*\) (.*)", out)
     check(len(lines) == steps, f"{len(lines)} HPE loss lines")
@@ -2014,7 +2208,7 @@ def export_phase(tmp: Path, crops: Path) -> dict:
         ["pix2pixhd", str(crops), str(labels_dir), "--size", str(size),
          "--device", "cuda", "--batch", str(batch)])
     check(got == n and p2p_launches == {
-        "gaussian_heatmaps": 0, **bn_launches(0, 0),
+        "gaussian_heatmaps": 0, **bn_launches(0, 0), **pad_launches(0, 0),
         "generate_jointsmap": -(-n // batch)},
         f"pix2pixhd: {got} labels, launches {p2p_launches}")
     print(f"export pix2pixhd: {n} labels and images in {seconds:.3f} s, "
@@ -2068,6 +2262,8 @@ def csv_train_phase(tmp: Path) -> dict:
     check(launches == {"gaussian_heatmaps": 0,
                        **bn_launches(BN_PER_STEP * steps,
                                      BN_PER_STEP * steps),
+                       **pad_launches(PAD_PER_STEP[0] * steps,
+                                      PAD_PER_STEP[1] * steps),
                        "generate_jointsmap": 0},
           f"CSV train launches {launches}")
     lines = re.findall(r"\(epoch: \d+, iters: (\d+), time: [^)]*\) (.*)", out)
@@ -2134,6 +2330,7 @@ def patn2_phase(test_crops: Path) -> dict:
     _check_scores("bench_baselines patn2", scores, n)
     batches = -(-n // batch)
     check(launches == {"gaussian_heatmaps": 2 * batches, **bn_launches(0, 0),
+                       **pad_launches(PATN2_PAD_SITES * batches, 0),
                        "generate_jointsmap": 0},
           f"PATN2 launches {launches}")
 
@@ -2189,7 +2386,7 @@ def pose_resnet_phase() -> dict:
     torch.cuda.synchronize()
     launches = kernel_launches()
     check(launches == {"gaussian_heatmaps": 0, **bn_launches(sites, sites),
-                       "generate_jointsmap": 0},
+                       **pad_launches(0, 0), "generate_jointsmap": 0},
           f"PoseResNet train launches {launches}")
     check(all(p.grad is not None and bool(torch.isfinite(p.grad).all())
               for p in net.parameters()), "PoseResNet gradients")
@@ -2259,8 +2456,13 @@ def zoo_nets_phase() -> dict:
         out.float().square().mean().backward()
         torch.cuda.synchronize()
         launches = kernel_launches()
+        # PATN2's stems pad inputs that need no gradient
+        pads = ((PATN2_PAD_SITES, PATN2_PAD_SITES - 2) if cls is PATN2Stream
+                else (0, 0))
         check(bool(torch.isfinite(out).all())
-              and launches["bn_sums"] == launches["bn_sums_backward"] == bns,
+              and launches["bn_sums"] == launches["bn_sums_backward"] == bns
+              and {k: launches[k] for k in pad_launches(0, 0)}
+              == pad_launches(*pads),
               f"{name}: train pass, launches {launches}")
         print(f"{name}: train-mode pass at batch 8, {size} px, bf16: output "
               f"{tuple(out.shape)}, launches {launches}")
@@ -2575,7 +2777,7 @@ def msra_v2v_phase(tmp: Path) -> dict:
         n_bn = MSRA_BN_SITES[name]
         check(math.isfinite(loss_value), f"{name}: loss {loss_value}")
         check(launches == {"gaussian_heatmaps": 0, **bn_launches(n_bn, n_bn),
-                           "generate_jointsmap": 0}
+                           **pad_launches(0, 0), "generate_jointsmap": 0}
               and len(bn_inputs) == n_bn,
               f"{name}: launches {launches}, {len(bn_inputs)} inputs")
         still = [k for k, v in net.state_dict().items()
@@ -2701,13 +2903,12 @@ def main() -> int:
     k2, k2b = timed(bn_kernel_phase)
     timed(bn_site_phase)
     bn_apply_rec, bn_apply_bwd_rec = timed(bn_apply_phase)
+    pad_rec, pad_bwd_rec = timed(reflect_pad_phase)
     k3 = timed(jointsmap_kernel_phase)
     paths = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = Path(tmp)
-        gen_k1 = timed(slice_phase, tmp)
-        check(gen_k1 > 0, "K1 was not launched on the generation path")
-        paths["generation"] = {"gaussian_heatmaps": gen_k1}
+        paths["generation"] = timed(slice_phase, tmp)
         paths["train"] = timed(train_slice_phase, tmp)
         paths["fp16 train"] = timed(fp16_train_phase, tmp)
         paths["resume"] = timed(resume_phase, tmp)
@@ -2729,9 +2930,12 @@ def main() -> int:
         paths["hand3d demos"] = timed(hand3d_demo_phase, tmp, crops)
         paths["MSRA/V2V train"] = timed(msra_v2v_phase, tmp)
     # K1 runs on every path that renders heatmaps, K2 and K2b on the train
-    # paths, K3 on the baselines' evaluation path and the pix2pixhd export
+    # paths, K3 on the baselines' evaluation path and the pix2pixhd export,
+    # the pad on the GAN's and the baselines' paths
     for rec, name in ((k1, "gaussian_heatmaps"), (k2, "bn_sums"),
-                      (k2b, "bn_sums_backward"), (k3, "generate_jointsmap")):
+                      (k2b, "bn_sums_backward"), (pad_rec, "reflect_pad"),
+                      (pad_bwd_rec, "reflect_pad_backward"),
+                      (k3, "generate_jointsmap")):
         rec["launches"] = sum(p.get(name, 0) for p in paths.values())
         check(rec["launches"] > 0, f"{name} was launched on no path")
     # the normalize's kernels run once beside each K2 and K2b launch
@@ -2750,6 +2954,13 @@ def main() -> int:
                                           "hand3d DB and evaluation",
                                           "hand3d demos")),
           "K2 or K2b was not launched on a train path")
+    check(all(paths[p].get("reflect_pad", 0)
+              == paths[p].get("reflect_pad_backward", 0) == 0
+              for p in ("HPE train", "HPE test", "preprocessing",
+                        "pix2pixhd export", "PoseResNet-50 train",
+                        "hand3d train", "hand3d DB and evaluation",
+                        "hand3d demos", "MSRA/V2V train")),
+          "the reflect pad was launched on a path with no reflect padding")
     print("launches by path: " + "; ".join(
         f"{p} {dict((k, v) for k, v in l.items() if v)}"
         for p, l in paths.items()))
@@ -2762,7 +2973,8 @@ def main() -> int:
              "skipped_share"]
     print(json.dumps({"kernels": [{k: rec[k] for k in order}
                                   for rec in (k1, k2, k2b, bn_apply_rec,
-                                              bn_apply_bwd_rec, k3)]}))
+                                              bn_apply_bwd_rec, pad_rec,
+                                              pad_bwd_rec, k3)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -61,12 +61,12 @@
 // not a multiple of the vector width, or a misaligned x or dx, take a
 // masked scalar load.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <cstring>
+
+#include "dtypes.cuh"
 
 namespace {
 
@@ -80,34 +80,6 @@ constexpr int kSumLanes = 8;       // K2: a channel tile is at most 8 vectors
 constexpr int kUnroll = 4;         // K2: loads in flight per thread
 constexpr int kMaxChunks = 256;    // K2: chunks a tile's last block sums
 constexpr int kMaxTickets = 8192;  // K2: tiles + 1 at most
-
-enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T v);
-template <>
-__device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <>
-__device__ __forceinline__ float to_f32<__half>(__half v) {
-  return __half2float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-template <>
-__device__ __forceinline__ __half from_f32<__half>(float v) {
-  return __float2half_rn(v);
-}
 
 // K2's plan, field for field ops/bn_stats.py `SumsPlan` (int64 each).
 struct SumsPlan {

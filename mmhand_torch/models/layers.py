@@ -25,6 +25,7 @@ import torch.distributed as dist
 from torch import nn
 
 from mmhand_torch.ops.bn_stats import bn_apply, bn_moments
+from mmhand_torch.ops.reflect_pad import reflect_pad
 from mmhand_torch.parallel.sharding import all_reduce_sum
 
 
@@ -134,7 +135,26 @@ def norm_layer(cfg: NormConfig, features: int) -> nn.Module:
     raise NotImplementedError(f"norm [{cfg.kind}] not found")
 
 
-_PAD_LAYERS = {"reflect": nn.ReflectionPad2d,
+class ReflectPad2d(nn.Module):
+    """Reflect padding of H and W by ``padding`` on each side
+    (``ops.reflect_pad``: ATen's pad on the CPU, the hand-written kernels
+    on CUDA, which take a channels_last input), in the input's type.  It
+    holds no parameter or buffer, so a network's ``state_dict`` keeps the
+    keys and ``nn.Sequential`` indices it had with
+    ``nn.ReflectionPad2d``."""
+
+    def __init__(self, padding: int):
+        super().__init__()
+        self.padding = padding
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return reflect_pad(x, self.padding)
+
+    def extra_repr(self) -> str:
+        return str(self.padding)
+
+
+_PAD_LAYERS = {"reflect": ReflectPad2d,
                "replicate": nn.ReplicationPad2d}
 
 

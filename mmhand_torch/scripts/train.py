@@ -106,16 +106,20 @@ LAUNCH_COUNTERS = {"gaussian_heatmaps": "k1.launches",
                    "bn_sums_backward": "k2b.launches",
                    "bn_apply": "bn_apply.launches",
                    "bn_apply_backward": "bn_apply_bwd.launches",
+                   "reflect_pad": "reflect_pad.launches",
+                   "reflect_pad_backward": "reflect_pad_bwd.launches",
                    "generate_jointsmap": "k3.launches"}
 
 
 def kernel_launches(names=("gaussian_heatmaps", "bn_sums",
                            "bn_sums_backward", "bn_apply",
-                           "bn_apply_backward")) -> dict:
+                           "bn_apply_backward", "reflect_pad",
+                           "reflect_pad_backward")) -> dict:
     """The launches of the kernels of ``names`` (by default the train
     step's: K1, the heatmaps; K2 and K2b, the BatchNorm sums; the
-    BatchNorm normalize and its backward) since the counters were last
-    reset; 0 on the CPU, where the plain versions run."""
+    BatchNorm normalize and its backward; the reflect pad and its
+    backward) since the counters were last reset; 0 on the CPU, where the
+    plain versions run."""
     counted = trace.counters()
     return {k: counted.get(LAUNCH_COUNTERS[k], 0) for k in names}
 

@@ -28,7 +28,7 @@ from mmhand_torch.models.check_nets import (
     make_test_pose_resnet,
     pose_resnet_f64,
 )
-from mmhand_torch.models.layers import BatchNorm2d, BatchNorm3d
+from mmhand_torch.models.layers import BatchNorm2d, BatchNorm3d, ReflectPad2d
 from mmhand_torch.ops.bn_stats import (
     bn_apply_backward,
     bn_apply_backward_ref,
@@ -48,14 +48,23 @@ from mmhand_torch.ops.heatmap import (
     skipped_elements,
 )
 from mmhand_torch.ops.jointsmap import generate_jointsmap, generate_jointsmap_ref
+from mmhand_torch.ops.reflect_pad import (
+    reflect_pad,
+    reflect_pad_backward_cuda,
+    reflect_pad_forward_cuda,
+    reflect_pad_ref,
+)
 from mmhand_torch.train.state import build_system
 from mmhand_torch.train.step import make_eval_step, make_train_step
 from mmhand_torch.utils import trace
 
+from test_torch_reflect_pad import backward_by_gather
+
 
 def launches(kernel: str) -> int:
     """The launches of ``kernel`` ('k1', 'k2', 'k2b', 'k3', 'bn_apply',
-    'bn_apply_bwd') counted in ``utils.trace``."""
+    'bn_apply_bwd', 'reflect_pad', 'reflect_pad_bwd') counted in
+    ``utils.trace``."""
     return trace.counters().get(f"{kernel}.launches", 0)
 
 
@@ -616,6 +625,148 @@ def test_batch_norm_train_pass_uses_bn_apply(cuda):
     for a, b in ((bn.running_mean, ref.running_mean),
                  (bn.running_var, ref.running_var)):
         assert float((a - b).abs().max()) <= 2e-6
+
+
+# the flagship step's pad sites at batch 16: G's f32 stems (3, 42, 6
+# channels) and D's (24, 6) at 256 px, pad 3; the PATBlocks' and
+# ResnetBlocks' 256 and 512 channels at 64 px, pad 1, bf16; the up path's 64
+# channels at 256 px, pad 3; the blocks' site in f16 and f32; then the
+# edges: mirrors that overlap (p = H - 1), a ragged C, odd sizes, and bases
+# ``offset`` elements off a 16-byte boundary (narrower vectors)
+REFLECT_PAD_CASES = [((16, 3, 256, 256), torch.float32, 3, 0),
+                     ((16, 42, 256, 256), torch.float32, 3, 0),
+                     ((16, 6, 256, 256), torch.float32, 3, 0),
+                     ((16, 24, 256, 256), torch.float32, 3, 0),
+                     ((16, 256, 64, 64), torch.bfloat16, 1, 0),
+                     ((16, 512, 64, 64), torch.bfloat16, 1, 0),
+                     ((16, 64, 256, 256), torch.bfloat16, 3, 0),
+                     ((16, 256, 64, 64), torch.float16, 1, 0),
+                     ((16, 256, 64, 64), torch.float32, 1, 0),
+                     ((3, 5, 4, 4), torch.bfloat16, 3, 0),
+                     ((2, 51, 17, 9), torch.float16, 3, 0),
+                     ((2, 7, 5, 11), torch.float32, 2, 0),
+                     ((2, 256, 8, 8), torch.bfloat16, 1, 1),
+                     ((2, 24, 9, 7), torch.float32, 3, 2),
+                     ((2, 64, 6, 6), torch.float16, 1, 4)]
+
+
+def _pad_inputs(shape, dtype, p, offset, seed, device):
+    """x in channels_last at ``offset`` elements into a flat buffer, and a
+    gradient of the padded output in channels_last at the same offset."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    b, c, h, w = shape
+
+    def nhwc(hh, ww):
+        n = b * hh * ww * c
+        flat = torch.randn(offset + n, generator=gen, device=device).to(dtype)
+        return flat[offset:].view(b, hh, ww, c).permute(0, 3, 1, 2)
+
+    return nhwc(h, w), nhwc(h + 2 * p, w + 2 * p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,p,offset", REFLECT_PAD_CASES)
+def test_reflect_pad_kernels_match_plain(cuda, shape, dtype, p, offset):
+    """reflect_pad_kernel equals ATen's pad bit for bit; the backward
+    equals its mirror's f32 sums on the card bit for bit, lies within one
+    rounding of the working type (and f32 sums of at most 9 terms) of
+    autograd of the pad in float64, and repeats bit for bit; both come out
+    channels_last, one launch each."""
+    x, dy = _pad_inputs(shape, dtype, p, offset, 21, cuda)
+    before = (launches("reflect_pad"), launches("reflect_pad_bwd"))
+    y = reflect_pad_forward_cuda(x, p)
+    dx = reflect_pad_backward_cuda(dy, p)
+    torch.cuda.synchronize()
+    assert (launches("reflect_pad"), launches("reflect_pad_bwd")) == (
+        before[0] + 1, before[1] + 1)
+    assert y.shape == dy.shape and dx.shape == x.shape
+    for t in (y, dx):
+        assert t.dtype == dtype
+        assert t.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(y, reflect_pad_ref(x, p))
+    assert torch.equal(dx, backward_by_gather(dy, p))
+    assert torch.equal(reflect_pad_backward_cuda(dy, p), dx)
+    exact = torch.zeros(x.shape, dtype=torch.float64, device=cuda,
+                        requires_grad=True)
+    total = torch.zeros_like(exact, requires_grad=True)
+    reflect_pad_ref(exact, p).backward(dy.double())
+    reflect_pad_ref(total, p).backward(dy.double().abs())
+    bound = (torch.finfo(dtype).eps / 2 * exact.grad.abs()
+             + 5 * torch.finfo(torch.float32).eps * total.grad)
+    assert bool(((dx.double() - exact.grad).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+def test_reflect_pad_refuses_what_it_does_not_take(cuda):
+    x = torch.randn(2, 8, 5, 6, device=cuda)
+    with pytest.raises(ValueError, match="channels_last"):
+        reflect_pad_forward_cuda(x, 1)
+    with pytest.raises(ValueError, match="channels_last"):
+        reflect_pad_backward_cuda(x, 1)
+    x = x.contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="below H and W"):
+        reflect_pad_forward_cuda(x, 5)
+    with pytest.raises(ValueError, match="below H and W"):
+        reflect_pad_backward_cuda(x, 2)
+    with pytest.raises(TypeError):
+        reflect_pad_forward_cuda(x.double(), 1)
+    with pytest.raises(ValueError, match="device"):
+        reflect_pad_forward_cuda(x.cpu(), 1)
+
+
+@pytest.mark.cuda
+def test_reflect_pad_counts_one_launch_per_site(cuda):
+    """Through a toy GAN train step and an eval-mode generator: one forward
+    launch per ReflectPad2d call, one backward launch per call whose input
+    needs a gradient.  A CUDA input the kernels do not take (NCHW, a slice
+    that is not channels_last, float64) raises, and launches nothing."""
+    cfg = Config(model=ModelConfig(fine_size=32, ngf=8, ndf=8, g_n_blocks=2,
+                                   n_layers_d=2),
+                 optim=OptimConfig(pool_size=0),
+                 data=DataConfig(dataset="synthetic"))
+    with pytest.warns(UserWarning, match="RANDOM VGG19"):
+        system = build_system(cfg, cuda)
+    calls = {"all": 0, "grad": 0}
+
+    def record(module, args):
+        calls["all"] += 1
+        calls["grad"] += int(torch.is_grad_enabled() and args[0].requires_grad)
+
+    nets = (system.generator, system.d_pb, system.d_pp)
+    hooks = [m.register_forward_pre_hook(record) for net in nets
+             for m in net.modules() if isinstance(m, ReflectPad2d)]
+    rng = np.random.RandomState(12)
+    batch = {k: torch.from_numpy(rng.uniform(
+        -1 if k[0] != "P" else 0, 1, (2, 32, 32, 21 if k[0] == "P" else 3)
+    ).astype(np.float32)).to(cuda) for k in ("H1", "P1", "D1", "H2", "P2", "D2")}
+    g_in = (batch["H1"], torch.cat([batch["P1"], batch["P2"]], -1),
+            torch.cat([batch["D1"], batch["D2"]], -1))
+    names = ("reflect_pad", "reflect_pad_bwd")
+    try:
+        before = [launches(k) for k in names]
+        make_train_step(system)(batch, 2e-4)
+        torch.cuda.synchronize()
+        counted = [launches(k) - b for k, b in zip(names, before)]
+        assert calls["grad"] > 0, calls
+        assert counted == [calls["all"], calls["grad"]], (counted, calls)
+        step_calls = calls["all"]
+        before = [launches(k) for k in names]
+        with torch.inference_mode():
+            system.generator.eval()(g_in)
+        torch.cuda.synchronize()
+        counted = [launches(k) - b for k, b in zip(names, before)]
+        assert counted == [calls["all"] - step_calls, 0]
+        before = [launches(k) for k in names]
+        nchw = torch.randn(2, 8, 5, 6, device=cuda, requires_grad=True)
+        small = torch.randn(2, 8, 3, 6, device=cuda).contiguous(
+            memory_format=torch.channels_last).requires_grad_()
+        for x in (nchw, small[..., :4], small.double()):
+            with pytest.raises((ValueError, TypeError)):
+                reflect_pad(x, 1)
+        assert [launches(k) - b for k, b in zip(names, before)] == [0, 0]
+    finally:
+        for h in hooks:
+            h.remove()
 
 
 @pytest.mark.cuda

@@ -142,7 +142,8 @@ def test_demo_kills_and_resumes_on_the_cpu(tmp_path, monkeypatch, capsys):
     assert out["leg2_lines"] == 12
     assert out["leg2_launches"] == {"gaussian_heatmaps": 0, "bn_sums": 0,
                                     "bn_sums_backward": 0, "bn_apply": 0,
-                                    "bn_apply_backward": 0}
+                                    "bn_apply_backward": 0, "reflect_pad": 0,
+                                    "reflect_pad_backward": 0}
     run = tmp_path / "ckpt" / "longrun_reflect"
     text = (run / "loss_log.txt").read_text()
     assert text.count("Training Loss") == 2  # each leg appended

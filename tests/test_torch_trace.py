@@ -332,7 +332,9 @@ def test_setup_and_launch_counters_read_the_registry():
         trace.reset()
         assert kernel_launches() == {"gaussian_heatmaps": 0, "bn_sums": 0,
                                      "bn_sums_backward": 0, "bn_apply": 0,
-                                     "bn_apply_backward": 0}
+                                     "bn_apply_backward": 0,
+                                     "reflect_pad": 0,
+                                     "reflect_pad_backward": 0}
         assert collective_launches() == 0
     finally:
         trace.reset()
